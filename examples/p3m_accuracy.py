@@ -9,13 +9,13 @@ Two scenes, because the near-field capacity story differs:
   practical static capacity and the overflow count reports how many
   particles fell back to the smooth LONG-RANGE mesh force — which is
   smoother than pure PM's kernel, so on overflow-dominated scenes the
-  SLOT sweep is WORSE than pm_grid (measured on v5e @8192: p3m 13.1% vs
-  pm 8.3% RMS; on the covered halo scene p3m is 0.03% vs pm 5.2%). The
+  SLOT sweep is WORSE than pm_grid there (while on the covered halo
+  scene p3m is far closer to exact than pm). The
   round-3 TREE near field (near_mode="tree", ops/treeforce.py) restores
   the <1% promise on such scenes — the CLI's `-p3mnear auto` probe picks
   it automatically.
 
-    python examples/p3m_accuracy.py            # real TPU
+    python examples/p3m_accuracy.py            # on the GPU
     JAX_PLATFORMS=cpu python examples/p3m_accuracy.py --quick
 """
 

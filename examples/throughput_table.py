@@ -1,6 +1,6 @@
 """Sim throughput across force models and particle counts (markdown table).
 
-    python examples/throughput_table.py            # real TPU
+    python examples/throughput_table.py            # on the GPU
     python examples/throughput_table.py --quick    # smaller sweep
 """
 
@@ -10,31 +10,16 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import jax
-
-_want = os.environ.get("JAX_PLATFORMS")
-if _want and jax.config.jax_platforms != _want:
-    jax.config.update("jax_platforms", _want)
-
 from multi_adapter_particles_tpu.config import SimConfig
 from multi_adapter_particles_tpu.models import init as pinit, integrator
-from multi_adapter_particles_tpu.ops import allpairs
-from multi_adapter_particles_tpu.ops.dispatch import pallas_supported
-
-
-def sync(state):
-    float(jax.device_get(state.position[0, 0]))
+from multi_adapter_particles_tpu.utils.timers import sync
 
 
 def bench(force, n, steps=5, **cfg_kw):
     cfg = SimConfig(num_particles=n, force_model=force,
                     interaction_scale=1.0 / n, **cfg_kw)
-    accel = None
-    if force == "all_pairs" and pallas_supported():
-        accel = allpairs.make_accel_fn(
-            mass=cfg.mass, softening_squared=cfg.softening_squared,
-            interaction_scale=cfg.interaction_scale)
-    step = integrator.make_step(cfg, accel_fn=accel)
+    # all_pairs runs the implementation ops/dispatch picks for the device
+    step = integrator.make_step(cfg)
     s = pinit.initialize_particles_device(n, seed=0)
     s = step(s)
     sync(s)
@@ -53,7 +38,7 @@ def main():
         row = [f"{n:,}"]
         for force in ("central_well", "pm_grid", "all_pairs"):
             if force == "all_pairs" and n > 1_048_576 and not quick:
-                row.append("—")  # 94 s/step; skip by default
+                row.append("—")  # O(N^2): 16x the 1M step; skip by default
                 continue
             dt = bench(force, n, steps=3 if force == "all_pairs" else 5)
             row.append(f"{dt*1e3:,.1f} ms")

@@ -2,8 +2,8 @@
 
 Flag set tracks the reference (`Particles.cpp:251-267`): numparticles,
 nogui, noext, size, intensity, novsync, fullscreen, numCopy, numDraw,
-numSim; `?` prints help (`ArgParser.h:105-127`). TPU-native extensions:
-steps, seed, force model, adapter indices, frame dumping, metrics JSON.
+numSim; `?` prints help (`ArgParser.h:105-127`). Extensions beyond the
+reference: steps, seed, force model, adapter indices, frame dumping, metrics JSON.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from multi_adapter_particles_tpu.utils.argparser import ArgParser
 
 
 def build_parser(app: AppConfig, extra: dict) -> ArgParser:
-    p = ArgParser("multi_adapter_particles_tpu — TPU-native particle sim + render")
+    p = ArgParser("multi_adapter_particles_tpu — JAX particle sim + render")
 
     def set_attr(name):
         return lambda v: setattr(app, name, v)
@@ -49,7 +49,7 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
     p.add_int("numcopy", "# particles transferred per frame", unlink_and_set("num_copy"))
     p.add_int("numdraw", "# particles drawn per frame", unlink_and_set("num_draw"))
 
-    # TPU-native extensions
+    # extensions beyond the reference
     def preset(name):
         from multi_adapter_particles_tpu.presets import apply_preset
 
@@ -66,15 +66,6 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
                 "self-gravity models, keeping the total mass at the "
                 "central-well value; 1.0 for central_well)",
                 lambda v: extra.__setitem__("interaction_scale", v))
-    p.add_flag("rectpair",
-               "all_pairs: use the rectangle kernel instead of the "
-               "(default, +12% faster) Newton-3rd half-pair schedule — "
-               "bitwise-matches the multi-chip bit-stable schedule",
-               lambda: extra.__setitem__("all_pairs_half", False))
-    p.add_flag("halfpair",
-               "all_pairs: Newton-3rd half-pair schedule (the single-chip "
-               "default since round 5; kept for script compatibility)",
-               lambda: extra.__setitem__("all_pairs_half", True))
     p.add_int("pmgrid", "pm_grid/p3m mesh resolution per axis (omit with "
               "-p3mnear tree: a scene-probed cost model picks it)",
               lambda v: extra.__setitem__("pm_grid_size", v))
@@ -93,10 +84,6 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
               "tree near-field block-pair budget (default: sized from the "
               "initial state)",
               lambda v: extra.__setitem__("p3m_pair_budget", v))
-    p.add_flag("treedirected",
-               "p3m tree: directed (both-ways) near sweep instead of the "
-               "(default) Newton-3rd halved sweep",
-               lambda: extra.__setitem__("tree_half_force", False))
     p.add_str("probecache",
               "startup-probe sidecar: auto (default, ~/.cache/"
               "multi_adapter_particles_tpu/probes.json) | off | a path — "
@@ -104,10 +91,10 @@ def build_parser(app: AppConfig, extra: dict) -> ArgParser:
               "the host tree probes (~66 s at 4M)",
               lambda v: extra.__setitem__("probe_cache", v))
     p.add_str("compilecache",
-              "persistent XLA compilation cache: auto (default, ~/.cache/"
-              "multi_adapter_particles_tpu/xla) | off | a dir — warm "
-              "launches fetch compiled programs instead of recompiling "
-              "(the fused 4M frame program alone is ~7 min cold)",
+              "persistent XLA compilation cache: auto (default: "
+              "$JAX_COMPILATION_CACHE_DIR if set, else .jax_cache/ in "
+              "the checkout) | off | a dir — warm launches fetch "
+              "compiled programs instead of recompiling",
               lambda v: extra.__setitem__("compile_cache", v))
     p.add_int("meshdevices", "run compute on a mesh of N devices (sharded sim)",
               lambda v: extra.__setitem__("mesh_devices", v))
@@ -212,7 +199,6 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     near_mode = extra.get("p3m_near_mode", "auto")
     pair_budget = extra.get("p3m_pair_budget")
-    sub_pair_budget = extra.get("p3m_sub_pair_budget")
     if extra.get("force") == "p3m" and (
         near_mode == "auto"
         or (
@@ -220,12 +206,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             and (
                 # every probe-derived value is gated individually below,
                 # so enter whenever ANY is missing: an explicit
-                # -p3mbudget must not silently disable the auto grid or
-                # the sub-budget sizing (and vice versa); supplying all
-                # three skips the probe entirely
+                # -p3mbudget must not silently disable the auto grid (and
+                # vice versa); supplying both skips the probe entirely
                 "pm_grid_size" not in extra
                 or pair_budget is None
-                or sub_pair_budget is None
             )
         )
     ):
@@ -303,11 +287,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"p3m: tree grid auto-selected G={grid} "
                   "(scene-probed cost model; override with -pmgrid)",
                   flush=True)
-        if near_mode == "tree" and (
-            pair_budget is None or sub_pair_budget is None
-        ):
-            # one shared probe feeds both budgets — and auto_grid above
-            # already cached this grid's counts, so it is usually free
+        if near_mode == "tree" and pair_budget is None:
+            # auto_grid above already cached this grid's counts, so the
+            # probe is usually free
             from multi_adapter_particles_tpu.ops.treeforce import (
                 PAIR_HEADROOM,
             )
@@ -316,18 +298,13 @@ def main(argv: Optional[List[str]] = None) -> int:
             gn = max(int(box // r_c), 1)
             ck = counts_cache_key(gn, r_c)
             if ck in cache.counts:
-                coarse, sub, _block = cache.counts[ck]
+                count, _block = cache.counts[ck]
             else:
-                coarse, sub, _block = host_tree_counts(pos0(), box, r_c, gn)
-                cache.counts[ck] = (coarse, sub, _block)
-            if pair_budget is None:
-                pair_budget = int(coarse * PAIR_HEADROOM) + 1
-                print(f"p3m: tree pair budget sized to {pair_budget} "
-                      "(from the initial state)", flush=True)
-            if sub_pair_budget is None and sub is not None:
-                sub_pair_budget = int(sub * PAIR_HEADROOM) + 2
-                print(f"p3m: sweep sub-pair list capped at "
-                      f"{sub_pair_budget} (wide-block scene)", flush=True)
+                count, _block = host_tree_counts(pos0(), box, r_c, gn)
+                cache.counts[ck] = (count, _block)
+            pair_budget = int(count * PAIR_HEADROOM) + 1
+            print(f"p3m: tree pair budget sized to {pair_budget} "
+                  "(from the initial state)", flush=True)
         cache.save()
 
     sim_cfg = SimConfig(
@@ -345,10 +322,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         p3m_capacity=extra.get("p3m_capacity", SimConfig.p3m_capacity),
         p3m_near_mode=near_mode,
         p3m_pair_budget=pair_budget,
-        p3m_sub_pair_budget=sub_pair_budget,
-        all_pairs_half=extra.get(
-            "all_pairs_half", SimConfig.all_pairs_half
-        ),
     )
     render_cfg = RenderConfig(
         width=extra.get("width", RenderConfig.width),
@@ -524,6 +497,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         ctx.close()
         if server is not None:
             server.close()
+    # run-level state for the metrics dump: whether the perf extension
+    # compiled the step, and the pacing bound the frame loop ended with
+    ext = particles.extension
+    particles.metrics.gauge(
+        "perf_extension_active", bool(ext is not None and ext.active)
+    )
+    particles.metrics.gauge(
+        "pacing_allowed_in_flight", particles.pacing.allowed_in_flight
+    )
     particles.shutdown()
 
     print(particles.metrics.render_text())

@@ -67,39 +67,11 @@ class SimConfig:
     # the CLI sizes it from the scene via treeforce.host_pair_budget —
     # dropped pairs are counted, never silent).
     p3m_pair_budget: Optional[int] = None
-    # Wide-block scenes (N > ~2M): truncation cap for the sweep's expanded
-    # sub-pair list after AABB pruning (None = keep all; the CLI sizes it
-    # via treeforce.host_sub_pair_budget — fewer SMEM slices, shortfall
-    # counted in dropped pairs).
-    p3m_sub_pair_budget: Optional[int] = None
     # Mesh runs: solve the PM field with the slab-decomposed distributed
     # FFT (parallel/dist_fft.py) instead of redundant per-device solves.
     # Worth it for G >= 256 (the doubled spectrum alone is 540 MB); needs
     # the inner mesh axis to divide the grid.
     pm_distributed_fft: bool = False
-    # all_pairs only: the Newton-3rd half-pair schedule — each pair plane
-    # computed once, applied to both sides (+12.3% measured @1M; see
-    # ops/allpairs.all_pairs_accel_halfpair). DEFAULT since round 5: the
-    # on-chip A/B (experiments/halfpair_ab.py, 2026-08-20) measured both
-    # kernels at f32-rounding accuracy vs float64 (RMS 1.9e-7 half vs
-    # 9.9e-8 rect @262K) with equal-or-better energy drift over 1000
-    # steps (2.08e-5 vs 2.60e-5 worst @65K) — the accumulation orders
-    # are interchangeable, so the faster kernel is the default. Each is
-    # individually deterministic; trajectories are not bitwise
-    # comparable ACROSS the two kernels. Single-chip only — the
-    # multi-chip schedule keeps the rectangle kernel (its all-gathered
-    # global reduction order is the bit-stable-across-rescale contract).
-    # -rectpair / all_pairs_half=False restores the rectangle kernel.
-    all_pairs_half: bool = True
-    # p3m tree near field: Newton-3rd halved force sweep (round 5) —
-    # each unordered block pair's plane computed once, applied to both
-    # sides (treeforce._sweep_kernel_n3). Same pair set and accuracy
-    # class as the directed sweep (ulp-order accumulation divergence,
-    # the -halfpair precedent); auto-falls-back where its static gate
-    # fails (XLA backend, sub-block-expanded scenes, multi-SMEM-slice
-    # lists, owner-masked mesh runs). -treedirected restores the
-    # directed sweep.
-    tree_half_force: bool = True
 
     def __post_init__(self):
         if self.num_particles <= 0:
@@ -192,8 +164,9 @@ class AppConfig:
     max_frame_latency: int = 2
     fullscreen: bool = False
     # The Intel command-queue throttle extension analog: request
-    # max-performance scheduling for the compute role (ExtensionHelper.h:138).
-    # On TPU this is a no-op placeholder kept for config parity.
+    # max-performance scheduling for the compute role (ExtensionHelper.h:138):
+    # compile the step with XLA's latency-hiding scheduler
+    # (utils/extension.py).
     use_queue_extension: bool = True
 
     def resolved_counts(self) -> Tuple[int, int, int]:

@@ -9,13 +9,14 @@ Mirrors the reference's compile-time configuration so behavior is reproducible:
 """
 
 # --- simulation kernel sizing (defines.h:37) -------------------------------
-# The reference dispatches 64-wide thread groups. On TPU the natural blocking
-# unit is the (8, 128) VPU tile; BLOCK_SIZE survives as the granularity of the
-# decoupled num_sim knob so parity configs are expressible.
+# The reference dispatches 64-wide thread groups. BLOCK_SIZE survives as the
+# granularity of the decoupled num_sim knob so parity configs are
+# expressible.
 BLOCK_SIZE = 64
 
-# TPU lane width: particle counts are padded to a multiple of this so the
-# trailing array dimension maps cleanly onto VPU lanes / MXU tiles.
+# Particle counts are padded to a multiple of this, so the trailing array
+# dimension splits into whole 128-wide blocks (kernel blocks, render
+# chunks, mesh shards).
 LANE = 128
 
 # --- initial conditions (defines.h:39-42, Compute.cpp:832-844) -------------

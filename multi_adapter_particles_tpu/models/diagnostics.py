@@ -111,20 +111,19 @@ def pairwise_potential_and_accel(
     return potential, acc * g
 
 
-# auto mode: the exact O(N²) potential up to here (0.4 s at 262K on one
-# v5e), the P³M-split mesh potential above (the exact sum is a ~94 s
-# dispatch at the reference-default 4M — see `mesh_potential_and_accel`)
+# auto mode: the exact O(N²) potential up to here, the P³M-split mesh
+# potential above (the exact sum grows as N², 256x the 262K cost at the
+# reference-default 4M — see `mesh_potential_and_accel`)
 _EXACT_MAX_N = 262_144
 
 
 def _gauge_grid(n: int, config_grid: int) -> int:
     """Mesh size for the POTENTIAL GAUGE — independent of the force
-    model's mesh. The gauge cost is tree-P³M cost, whose measured grid
-    optimum shifts with N (experiments/tree_scaling.py on-chip sweeps:
-    G=192 @1M 689 ms, G=256 @4M 3496 ms; inheriting a run's G=128 at 4M
-    costs ~4x — 13.7 s/sample measured 2026-08-19). Small N keeps the
-    config's own mesh (cheap everywhere, and the accuracy-pinning tests
-    run there)."""
+    model's mesh. The gauge cost is tree-P³M cost, whose grid optimum
+    shifts with N (G=192 around 1M, G=256 at 4M; a run's G=128 at 4M
+    leaves the near sweep most of the pairs). Small N keeps the config's
+    own mesh (cheap everywhere, and the accuracy-pinning tests run
+    there)."""
     if n <= _EXACT_MAX_N:
         return config_grid
     if n <= 2_097_152:
@@ -140,7 +139,6 @@ def mesh_potential_and_accel(
     box: float,
     cutoff_cells: float = 6.75,
     pair_budget: int | None = None,
-    sub_pair_budget: int | None = None,
 ) -> tuple[Array, Array, Array]:
     """P³M-split (potential, accel, dropped_pairs): the 4M-usable gauge.
 
@@ -149,8 +147,7 @@ def mesh_potential_and_accel(
     short remainder (`ops/p3m.py` `with_potential`) — REGARDLESS of
     which approximation produces the run's forces; measured 1.3e-4
     relative total-energy error vs the exact sum on a clustered 4K
-    scene, at tree-force cost instead of O(N²) — measured 5.1 s/sample
-    at 4M (G=256, v5e 2026-08-19) vs the ~94 s exact dispatch.
+    scene, at tree-force cost instead of O(N²).
     The returned accel is the tree-P³M force (<0.1% RMS of exact) —
     accurate enough for the half-kick velocity sync."""
     from multi_adapter_particles_tpu.ops import p3m
@@ -158,8 +155,7 @@ def mesh_potential_and_accel(
     accel, u, dropped = p3m.p3m_accel_with_overflow(
         position, grid=grid, box=box, g_const=g_scale,
         softening_squared=softening_squared, cutoff_cells=cutoff_cells,
-        near_mode="tree", pair_budget=pair_budget,
-        sub_pair_budget=sub_pair_budget, with_potential=True,
+        near_mode="tree", pair_budget=pair_budget, with_potential=True,
     )
     return 0.5 * jnp.sum(u), accel, dropped
 
@@ -172,7 +168,6 @@ def mesh_potential_only(
     box: float,
     cutoff_cells: float = 6.75,
     pair_budget: int | None = None,
-    sub_pair_budget: int | None = None,
     half_pairs: bool = True,
     total_only: bool = True,
 ) -> tuple[Array, Array]:
@@ -199,15 +194,13 @@ def mesh_potential_only(
         u_total, dropped = p3m.p3m_potential_total_with_overflow(
             position, grid=grid, box=box, g_const=g_scale,
             softening_squared=softening_squared, cutoff_cells=cutoff_cells,
-            pair_budget=pair_budget, sub_pair_budget=sub_pair_budget,
-            half_pairs=half_pairs,
+            pair_budget=pair_budget, half_pairs=half_pairs,
         )
         return 0.5 * u_total, dropped
     u, dropped = p3m.p3m_potential_with_overflow(
         position, grid=grid, box=box, g_const=g_scale,
         softening_squared=softening_squared, cutoff_cells=cutoff_cells,
-        pair_budget=pair_budget, sub_pair_budget=sub_pair_budget,
-        half_pairs=half_pairs,
+        pair_budget=pair_budget, half_pairs=half_pairs,
     )
     return 0.5 * jnp.sum(u), dropped
 
@@ -219,7 +212,6 @@ def make_diagnostics(
     potential_mode: str = "auto",
     pair_budget: int | None = None,
     external_accel: bool = False,
-    sub_pair_budget: int | None = None,
 ) -> Callable[..., Dict[str, Array]]:
     """Build the jitted `state -> {scalar gauges}` diagnostics function.
 
@@ -233,10 +225,6 @@ def make_diagnostics(
     mesh above (the exact sum at the reference-default 4M is a ~94 s
     dispatch). `pair_budget` sizes the mesh gauge's tree pair list
     (None = density-free default; `DiagnosticsProbe` probes the scene).
-    `sub_pair_budget` (None = the config's `p3m_sub_pair_budget`)
-    truncates the sweep's sub-block expansion to the probed survivor
-    count — at wide-block N (>= ~1M) the untruncated expanded list is
-    split²-fold sentinel-padded and costs extra SMEM sweep slices.
 
     `external_accel`: the returned fn takes `(state, accel)` and uses the
     SUPPLIED accel [3, Np] for the half-kick velocity sync — the run's
@@ -244,7 +232,7 @@ def make_diagnostics(
     velocities are staggered by the force that was APPLIED). The mesh
     gauge then skips all its force work (`mesh_potential_only`); the
     potential is identical between the two paths (to fusion-level
-    rounding on the XLA fallback; bitwise on the Pallas sweep).
+    rounding).
     """
     n = config.num_particles
     dt = jnp.float32(config.dt)
@@ -262,8 +250,6 @@ def make_diagnostics(
         potential_mode == "mesh"
         or (potential_mode == "auto" and n > _EXACT_MAX_N)
     )
-    if sub_pair_budget is None:
-        sub_pair_budget = config.p3m_sub_pair_budget
 
     def _central_potential(pos, mask):
         r = pos[:3]
@@ -309,7 +295,6 @@ def make_diagnostics(
                     box=config.pm_box,
                     cutoff_cells=config.p3m_cutoff_cells,
                     pair_budget=pair_budget,
-                    sub_pair_budget=sub_pair_budget,
                 )
                 extra["diag_dropped_pairs"] = dropped
             elif model in _SELF_GRAVITY:
@@ -335,7 +320,6 @@ def make_diagnostics(
                     box=config.pm_box,
                     cutoff_cells=config.p3m_cutoff_cells,
                     pair_budget=pair_budget,
-                    sub_pair_budget=sub_pair_budget,
                 )
             else:
                 # no half-kick -> no force needed: potential-only gauge
@@ -345,7 +329,6 @@ def make_diagnostics(
                     box=config.pm_box,
                     cutoff_cells=config.p3m_cutoff_cells,
                     pair_budget=pair_budget,
-                    sub_pair_budget=sub_pair_budget,
                 )
                 accel = jnp.zeros_like(pos[:3])
             extra["diag_dropped_pairs"] = dropped
@@ -396,7 +379,6 @@ class DiagnosticsProbe:
         self._fn_ext = None
         self._run_accel = None
         self._probed_budget: Optional[int] = None
-        self._probed_sub: Optional[int] = None
         self._e0: Optional[float] = None
         if use_run_accel is None:
             use_run_accel = (
@@ -412,17 +394,11 @@ class DiagnosticsProbe:
         )
 
     def _budget(self, state):
-        """-> (pair_budget, sub_pair_budget) for the gauge's tree sweep.
-
-        One cached `host_tree_counts` probe (one host Morton sort at the
-        gauge grid) sizes BOTH: the coarse block-pair budget and, when
-        the scene's adaptive block is wider than the sweep width, the
-        sub-block survivor budget — without the latter the expanded
-        sweep list is split²-fold sentinel-padded and pays extra SMEM
-        slices at multi-million N."""
+        """-> pair_budget for the gauge's tree sweep, from one cached
+        `host_tree_counts` probe (one host Morton sort at the gauge
+        grid)."""
         cfg = self._config
         budget = cfg.p3m_pair_budget
-        sub = cfg.p3m_sub_pair_budget
         if self._needs_mesh() and budget is None:
             # probe once and cache: building BOTH gauge variants (a
             # caller passing accel= on some samples only) must not pay
@@ -437,24 +413,17 @@ class DiagnosticsProbe:
                 gg = _gauge_grid(cfg.num_particles, cfg.pm_grid_size)
                 r_c = cfg.p3m_cutoff_cells * cfg.pm_box / gg
                 gn = max(int(cfg.pm_box // r_c), 1)
-                coarse, subc, _blk = host_tree_counts(
+                count, _blk = host_tree_counts(
                     np.asarray(state.position), cfg.pm_box, r_c, gn
                 )
-                self._probed_budget = int(coarse * PAIR_HEADROOM) + 1
-                self._probed_sub = (
-                    None if subc is None else int(subc * PAIR_HEADROOM) + 2
-                )
+                self._probed_budget = int(count * PAIR_HEADROOM) + 1
             budget = self._probed_budget
-            if sub is None:
-                sub = self._probed_sub
-        return budget, sub
+        return budget
 
     def _build(self, state, external_accel: bool):
-        budget, sub = self._budget(state)
         return make_diagnostics(
             self._config, sync=self._sync, potential_mode=self._mode,
-            pair_budget=budget, external_accel=external_accel,
-            sub_pair_budget=sub,
+            pair_budget=self._budget(state), external_accel=external_accel,
         )
 
     def maybe_publish(self, frame_count: int, state, metrics,

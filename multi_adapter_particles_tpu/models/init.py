@@ -2,7 +2,7 @@
 
 The reference initializes particles on the CPU with a parallel_for over three
 selectable RNG tiers and uploads them via staging buffers
-(`Compute.cpp:667-923`). The TPU-native equivalents are:
+(`Compute.cpp:667-923`). The on-device equivalents are:
 
 - `initialize_particles_device`: the same rejection-accumulation algorithm
   (`Compute.cpp:690-695`) run entirely on device — one fold-in PRNG stream per

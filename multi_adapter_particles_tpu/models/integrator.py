@@ -9,8 +9,8 @@ Force models:
 - `central_well_accel`: the shipped CSMain math (`nBodyGravityCS.hlsl:92-101`).
 - `all_pairs_accel`: the O(N^2) bodyBodyInteraction sum
   (`nBodyGravityCS.hlsl:44-57`) in pure XLA (batched over j-tiles via scan);
-  the Pallas VMEM-tiled version lives in `ops/allpairs.py` and is selected by
-  the engine when running on TPU.
+  the Triton kernel lives in `ops/allpairs.py`, and `ops/dispatch.py`
+  chooses between them per device.
 
 The `num_sim` decoupling knob (`Particles.cpp:265`, `Compute.cpp:1041`:
 dispatch ceil(numSim/64) groups, the rest of the buffer is left stale) is
@@ -142,13 +142,17 @@ def _apply_num_sim_mask(
 # ---------------------------------------------------------------------------
 # Step builders
 # ---------------------------------------------------------------------------
-def make_accel_fn_for(config: SimConfig) -> Callable[[Array], Array]:
+def make_accel_fn_for(
+    config: SimConfig, all_pairs_impl: Optional[str] = None
+) -> Callable[[Array], Array]:
     """The run's own accel function (position [4, Np] -> accel [3, Np]) —
     exactly the force `make_step` applies each frame. Shared with the
     diagnostics probe so the half-kick velocity sync can reuse the
     dynamics force (the physically-right de-stagger: stored velocities
     are staggered by the APPLIED force) instead of recomputing the
-    gauge's tree force."""
+    gauge's tree force. `all_pairs_impl` ("xla" | "triton"; None = what
+    `ops/dispatch.all_pairs_impl` picks for the default device) selects
+    the all-pairs implementation."""
     if config.force_model == "central_well":
         return functools.partial(
             central_well_accel,
@@ -176,27 +180,20 @@ def make_accel_fn_for(config: SimConfig) -> Callable[[Array], Array]:
             capacity=config.p3m_capacity,
             near_mode=config.p3m_near_mode,
             pair_budget=config.p3m_pair_budget,
-            sub_pair_budget=config.p3m_sub_pair_budget,
-            half_force=config.tree_half_force,
         )
 
-    # all_pairs: mirror ComputeEngine's kernel selection exactly
-    # (compute_engine.py:102-108) so "the run's own accel" contract
-    # holds — on TPU that is the Pallas kernel honoring
-    # config.all_pairs_half (the round-5 halfpair default); elsewhere
-    # the XLA rectangle fallback, which is also what make_step itself
-    # falls back to (there is no XLA halfpair variant — single-chip
-    # non-Pallas backends always run rect, so parity holds there too).
-    from multi_adapter_particles_tpu.ops.dispatch import pallas_supported
+    from multi_adapter_particles_tpu.ops import dispatch
 
-    if pallas_supported():
+    if all_pairs_impl is None:
+        all_pairs_impl = dispatch.all_pairs_impl()
+    if all_pairs_impl != dispatch.XLA:
         from multi_adapter_particles_tpu.ops import allpairs
 
         return allpairs.make_accel_fn(
             mass=config.mass,
             softening_squared=config.softening_squared,
             interaction_scale=config.interaction_scale,
-            half=config.all_pairs_half,
+            interpret=all_pairs_impl == dispatch.TRITON_INTERPRET,
         )
 
     def accel_fn(position, _n=config.num_particles):
@@ -221,8 +218,8 @@ def make_step(
 ) -> Callable[[ParticleState], ParticleState]:
     """Build the jitted `state -> state` step for a SimConfig.
 
-    `accel_fn` overrides the force model (used to plug in Pallas kernels);
-    it maps position [4, Np] -> accel [3, Np].
+    `accel_fn` overrides the force model; it maps position [4, Np] ->
+    accel [3, Np]. Default: `make_accel_fn_for(config)`.
 
     The returned callable takes (state, num_sim=None); num_sim is static
     (each distinct value compiles once — the analog of re-recording the

@@ -216,25 +216,29 @@ def central_well_step(
     damping: float = C.DAMPING,
     mass: float = C.PARTICLE_MASS,
     softening_squared: float = C.SOFTENING_SQUARED,
+    dtype=F32,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """The shipped CSMain (`nBodyGravityCS.hlsl:85-109`):
     one gravity well at the origin, semi-implicit Euler, pos.w = |accel|.
-    AoS float32 in/out: positions [N, 4], velocities [N, 3].
+    AoS in/out: positions [N, 4], velocities [N, 3], computed in `dtype`
+    (float32 like the shader by default; float64 for a rounding-free
+    reference).
     """
-    positions = positions.astype(F32)
-    velocities = velocities.astype(F32)
+    T = np.dtype(dtype).type
+    positions = positions.astype(T)
+    velocities = velocities.astype(T)
     r = positions[:, :3]
-    dist_sqr = np.sum(r * r, axis=1, dtype=F32) + F32(softening_squared)
-    inv_dist = F32(-1.0) / np.sqrt(dist_sqr, dtype=F32)
+    dist_sqr = np.sum(r * r, axis=1, dtype=T) + T(softening_squared)
+    inv_dist = T(-1.0) / np.sqrt(dist_sqr, dtype=T)
     inv_dist_cube = inv_dist * inv_dist * inv_dist
-    s = F32(mass) * inv_dist_cube
+    s = T(mass) * inv_dist_cube
     accel = r * s[:, None]
-    vel = velocities + accel * F32(dt)
-    vel = vel * F32(damping)
-    pos_xyz = r + vel * F32(dt)
-    accel_mag = np.sqrt(np.sum(accel * accel, axis=1, dtype=F32), dtype=F32)
+    vel = velocities + accel * T(dt)
+    vel = vel * T(damping)
+    pos_xyz = r + vel * T(dt)
+    accel_mag = np.sqrt(np.sum(accel * accel, axis=1, dtype=T), dtype=T)
     new_positions = np.concatenate([pos_xyz, accel_mag[:, None]], axis=1)
-    return new_positions.astype(F32), vel.astype(F32)
+    return new_positions.astype(T), vel.astype(T)
 
 
 def all_pairs_step(

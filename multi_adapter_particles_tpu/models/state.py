@@ -5,11 +5,10 @@ The reference keeps AoS buffers: position float4 (w = |accel| for coloring,
 (`Compute.h:66-69`), double-buffered as 2+2 ping-pong UAVs
 (`Compute.h:80,106-108`).
 
-TPU-first redesign:
-- **SoA planes** `position[4, N]`, `velocity[3, N]`: the trailing dimension
-  maps onto the 128-wide VPU lanes / MXU tiles, so elementwise physics and
-  the blocked all-pairs kernel tile perfectly. (AoS `[N, 4]` would waste
-  124/128 lanes per row.)
+Redesign:
+- **SoA planes** `position[4, N]`, `velocity[3, N]`: each coordinate is a
+  contiguous row, so elementwise physics reads coalesced streams and the
+  blocked all-pairs kernel loads whole coordinate tiles.
 - **No explicit ping-pong**: the double buffer becomes functional state +
   `jax.jit` buffer donation; XLA aliases input/output storage, which is the
   descriptor-base-sliding trick (`Compute.cpp:52-62,1030-1035`) done by the
@@ -106,7 +105,7 @@ class ParticleState:
 
 
 def padded_count(n: int, lane: int = C.LANE) -> int:
-    """Round a particle count up to the TPU lane multiple."""
+    """Round a particle count up to the lane multiple (`constants.LANE`)."""
     return -(-n // lane) * lane
 
 

@@ -1,22 +1,25 @@
-"""Pallas TPU kernels: the device-side hot loops.
+"""Device-side hot loops and the choice of their implementation.
 
-These are the HLSL analogs (`nBodyGravityCS.hlsl`, `ParticleDraw.hlsl`)
-rebuilt as TPU kernels:
+These are the HLSL analogs (`nBodyGravityCS.hlsl`, `ParticleDraw.hlsl`):
 
-- `central_well.py`  — the shipped O(N) CSMain integrator, fused in one
-  VMEM pass (position+velocity update and |accel| in a single kernel).
-- `allpairs.py`      — the tiled O(N^2) bodyBodyInteraction force, particle
-  tiles staged through VMEM (the groupshared-memory analog).
-- `composite.py`     — the VMEM segmented-blend (splat composite) kernel;
-  the tile-binned rasterizer that feeds it lives in `render/renderer.py`.
+- `allpairs.py`   — the tiled O(N^2) bodyBodyInteraction force as a Pallas
+  kernel for the Triton route: source tiles streamed past register-held
+  targets (the groupshared-memory analog).
+- `composite.py`  — the segmented-blend (splat composite) kernel, same
+  route; the tile-binned rasterizer that feeds it lives in
+  `render/renderer.py`.
+- `pm.py`, `p3m.py`, `treeforce.py` — the mesh and near-field force
+  models, plain XLA.
 
-Every kernel has an XLA fallback (used on CPU test meshes and as a
-correctness oracle); the Pallas path is selected on TPU backends.
+Every kernel has an XLA formulation, which is the reference in tests and
+the implementation on backends without the kernel; `dispatch.py` makes
+that choice per device.
 """
 
 from multi_adapter_particles_tpu.ops.dispatch import (
-    is_tpu_backend,
-    pallas_supported,
+    all_pairs_impl,
+    composite_impl,
+    has_kernels,
 )
 
-__all__ = ["is_tpu_backend", "pallas_supported"]
+__all__ = ["all_pairs_impl", "composite_impl", "has_kernels"]

@@ -1,27 +1,27 @@
-"""Blocked all-pairs gravity force as a Pallas TPU kernel.
+"""Blocked all-pairs gravity force as a Pallas kernel for the Triton route.
 
-This is the TPU rebuild of the tiled O(N^2) force the demo's lineage points
-at: the Microsoft original staged particle tiles through groupshared memory
-and accumulated `bodyBodyInteraction` (`nBodyGravityCS.hlsl:44-57`) over all
-tiles. Here the analog of groupshared memory is VMEM:
+This is the GPU shape the demo's lineage already had: Microsoft's
+D3D12nBodyGravity stages tiles of bodies through groupshared memory while
+each thread keeps one body's accumulator in registers, and sums
+`bodyBodyInteraction` (`nBodyGravityCS.hlsl:44-57`) over every tile.
 
-- The grid walks i-tiles (the particles whose acceleration we produce),
-  delivered as [TI, 4] row blocks of the transposed positions so that each
-  coordinate is directly a [TI, 1] sublane column.
-- For each i-tile, j-tiles of source positions stream HBM -> VMEM as
-  [4, TJ] lane slices through a double-buffered async-copy pipeline (DMA of
-  tile j+1 overlaps force math on tile j) — the copy-queue-overlaps-compute
-  idea (`Render.cpp:789-831`) applied *inside* the chip.
-- Pairwise planes are [TI, TJ]: i down sublanes, j across lanes; the
-  per-component accumulation is a lane-axis reduction producing [TI, 1]
-  columns carried through the j-loop in registers.
+- One program per block of `block_i` targets. Its target coordinates
+  stay in registers for the whole source loop.
+- The program walks the sources in tiles of `block_j`. Each tile is
+  loaded once per program; at 1M bodies the whole [4, N] source array is
+  16 MB and stays resident in the 50 MB L2, so the loop reads L2, not
+  device memory.
+- The pair terms accumulate elementwise into [block_i, block_j] float32
+  planes, which are summed over j once, after the loop: no cross-thread
+  reduction inside the loop.
+- There is no mask. Padding particles are parked at 1e9
+  (`models/state.py`): a parked source adds O(1e-19) to a real target,
+  and parked-parked pairs have r = 0, which contributes exactly zero, as
+  does every self pair (the upstream shader never special-cases i == j
+  either).
 
-Padding particles are parked at 1e9 (see `models/state.py`); pad-pad pairs
-have r = 0 (identical positions -> zero force) and pad-real forces are
-O(1e-14), so no mask is needed in the hot loop.
-
-Self-interaction contributes exactly zero (r_ii = 0), matching the upstream
-shader which never special-cases i == j.
+The plain XLA formulation is `models/integrator.all_pairs_accel`;
+`ops/dispatch.all_pairs_impl` chooses between the two.
 """
 
 from __future__ import annotations
@@ -31,370 +31,141 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-from multi_adapter_particles_tpu.ops.dispatch import interpret_flag
+from multi_adapter_particles_tpu.models.state import PAD_POSITION
 
-# Default tile sizes. VMEM at (TI=256, TJ=2048): each [TI, TJ] f32 plane is
-# 2 MiB; the fused expression keeps ~5 planes live => ~10 MiB peak, inside
-# the 16 MiB/core scoped-vmem budget ((1024,1024)/(2048,256) fail to
-# compile; measured sweep on v5e: (256,2048) 0.168 Tpairs/s vs (512,1024)
-# 0.159, (1024,512) 0.109). The j-stream buffers are tiny (2 x 4 x TJ).
-DEFAULT_TI = 256
-DEFAULT_TJ = 2048
+# Tile shape and launch parameters: the fastest of the launch shapes swept
+# at 1M on an H100 (`chip_smoke.py --sweep`; PERF.md "Kernel decisions").
+DEFAULT_BLOCK_I = 128
+DEFAULT_BLOCK_J = 32
+DEFAULT_NUM_WARPS = 8
+DEFAULT_NUM_STAGES = 2
 
 
-def _allpairs_kernel(
-    pos_hbm,    # [4, Np] in ANY/HBM — j-stream, sliced manually
-    posT_i,     # [TI, 4] VMEM block for this grid step (x, y, z, w columns)
-    accel_out,  # [TI, 4] VMEM output block (ax, ay, az, |a|)
-    buf,        # [4, 4, TJ] VMEM scratch — double-buffered PAIRS of j tiles
-    sem,        # [4] DMA semaphores
-    *,
-    num_j_tiles: int,
-    tj: int,
-    mass_scale: float,
-    eps2: float,
-):
-    ti = posT_i.shape[0]
-    xi = posT_i[:, 0:1]  # [TI, 1]
-    yi = posT_i[:, 1:2]
-    zi = posT_i[:, 2:3]
+def _kernel(tgt_ref, src_ref, out_ref, *, num_j_blocks, block_j, eps2,
+            mass_scale):
+    xi = tgt_ref[0, :][:, None]          # [BI, 1]
+    yi = tgt_ref[1, :][:, None]
+    zi = tgt_ref[2, :][:, None]
+    block_i = xi.shape[0]
 
-    def dma(slot, j):
-        return pltpu.make_async_copy(
-            pos_hbm.at[:, pl.ds(j * tj, tj)],
-            buf.at[slot],
-            sem.at[slot],
-        )
-
-    def tile_force(tile, acc):
-        ax, ay, az = acc
-        xj = tile[0:1, :]     # [1, TJ]
-        yj = tile[1:2, :]
-        zj = tile[2:3, :]
-        dx = xj - xi          # [TI, TJ]
-        dy = yj - yi
-        dz = zj - zi
+    def body(j, acc):
+        ax, ay, az = acc                 # each [BI, BJ]
+        sl = pl.ds(j * block_j, block_j)
+        dx = src_ref[0, sl][None, :] - xi
+        dy = src_ref[1, sl][None, :] - yi
+        dz = src_ref[2, sl][None, :] - zi
         d2 = dx * dx + dy * dy + dz * dz + jnp.float32(eps2)
         inv = jax.lax.rsqrt(d2)
-        s = inv * inv * inv   # 1 / d^3  (mass applied once at the end)
-        return (
-            ax + jnp.sum(dx * s, axis=1, keepdims=True),
-            ay + jnp.sum(dy * s, axis=1, keepdims=True),
-            az + jnp.sum(dz * s, axis=1, keepdims=True),
-        )
+        s = inv * inv * inv              # 1 / d^3 (mass applied once below)
+        return ax + dx * s, ay + dy * s, az + dz * s
 
-    zero = jnp.zeros((ti, 1), jnp.float32)
-    num_pairs = num_j_tiles // 2
-
-    # Two tiles per iteration feeding two INDEPENDENT accumulator chains:
-    # the reductions of tile 2k don't serialize against tile 2k+1, giving
-    # the VPU overlapping dependency chains (+4% measured; bit-identical
-    # up to the final pairwise add).
-    def body(p, carry):
-        a0, a1 = carry[:3], carry[3:]
-        base = jax.lax.rem(p, 2) * 2
-
-        @pl.when(p + 1 < num_pairs)
-        def _():
-            nxt = (1 - jax.lax.rem(p, 2)) * 2
-            dma(nxt, (p + 1) * 2).start()
-            dma(nxt + 1, (p + 1) * 2 + 1).start()
-
-        dma(base, p * 2).wait()
-        dma(base + 1, p * 2 + 1).wait()
-        a0 = tile_force(buf[base], a0)
-        a1 = tile_force(buf[base + 1], a1)
-        return (*a0, *a1)
-
-    if num_pairs:
-        dma(0, 0).start()
-        dma(1, 1).start()
-        acc = jax.lax.fori_loop(
-            0, num_pairs, body, (zero, zero, zero, zero, zero, zero)
-        )
-        a0, a1 = acc[:3], acc[3:]
-    else:
-        a0 = (zero, zero, zero)
-        a1 = (zero, zero, zero)
-
-    if num_j_tiles % 2:
-        # odd tail tile, un-overlapped (only reachable for non-pow2 tile
-        # counts; the free ring half is idle by now)
-        free = ((num_pairs % 2) * 2) if num_pairs else 0
-        dma(free, num_j_tiles - 1).start()
-        dma(free, num_j_tiles - 1).wait()
-        a0 = tile_force(buf[free], a0)
-
+    zero = jnp.zeros((block_i, block_j), jnp.float32)
+    ax, ay, az = jax.lax.fori_loop(0, num_j_blocks, body, (zero, zero, zero))
     m = jnp.float32(mass_scale)
-    ax = (a0[0] + a1[0]) * m
-    ay = (a0[1] + a1[1]) * m
-    az = (a0[2] + a1[2]) * m
-    amag = jnp.sqrt(ax * ax + ay * ay + az * az)
-    accel_out[:, :] = jnp.concatenate([ax, ay, az, amag], axis=1)
+    ax = jnp.sum(ax, axis=1) * m
+    ay = jnp.sum(ay, axis=1) * m
+    az = jnp.sum(az, axis=1) * m
+    out_ref[0, :] = ax
+    out_ref[1, :] = ay
+    out_ref[2, :] = az
+    out_ref[3, :] = jnp.sqrt(ax * ax + ay * ay + az * az)
 
 
-from multi_adapter_particles_tpu.ops.dispatch import pick_tile as _pick_tile
-
-
-def _pick(n: int, want: int) -> int:
-    # i-tiles live on sublanes (8-aligned); j-tiles are DMA lane slices
-    # (128-aligned) — both constraints satisfied by 128 alignment here
-    return _pick_tile(n, want, 128)
+def _pad_to(x: jax.Array, multiple: int) -> jax.Array:
+    pad = (-x.shape[1]) % multiple
+    if not pad:
+        return x
+    return jnp.concatenate(
+        [x, jnp.full((x.shape[0], pad), PAD_POSITION, x.dtype)], axis=1
+    )
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("mass", "softening_squared", "interaction_scale", "ti", "tj"),
+    static_argnames=(
+        "mass", "softening_squared", "interaction_scale", "block_i",
+        "block_j", "num_warps", "num_stages", "interpret",
+    ),
 )
-def all_pairs_accel_pallas(
+def all_pairs_accel_triton(
     position: jax.Array,
     mass: float,
     softening_squared: float,
     interaction_scale: float = 1.0,
-    ti: int = DEFAULT_TI,
-    tj: int = DEFAULT_TJ,
     sources: jax.Array | None = None,
+    block_i: int = DEFAULT_BLOCK_I,
+    block_j: int = DEFAULT_BLOCK_J,
+    num_warps: int = DEFAULT_NUM_WARPS,
+    num_stages: int = DEFAULT_NUM_STAGES,
+    interpret: bool = False,
 ) -> jax.Array:
     """position [4, Ni] -> [4, Ni] (ax, ay, az, |a|), all float32.
 
-    `sources` ([4, Nj], default = position) selects the j-side bodies; the
-    split form is the building block of the multi-chip ring, where each
-    stage computes forces from one visiting position block (the ring
-    all-gather over ICI, SURVEY §2.3).
-
-    Returns acceleration planes; the Euler tail stays in XLA where it fuses
-    with neighbors (its HBM traffic is negligible next to the O(N^2) math).
-    """
+    `sources` ([4, Nj], default = position) selects the j-side bodies —
+    the split form the sharded schedules use. Any Ni and Nj: both sides
+    are padded with parked particles to whole blocks. `interpret=True`
+    runs the kernel in the Pallas interpreter (tests on the CPU)."""
     if sources is None:
         sources = position
     ni = position.shape[1]
-    nj = sources.shape[1]
-    ti = _pick(ni, ti)
-    tj = _pick(nj, tj)
-    num_j_tiles = nj // tj
-
-    posT = position.T  # [Ni, 4], one cheap transpose per step
+    tgt = _pad_to(position[:3].astype(jnp.float32), block_i)
+    src = _pad_to(sources[:3].astype(jnp.float32), block_j)
+    # a fourth row keeps every block a power of two in height
+    tgt = jnp.concatenate([tgt, jnp.zeros_like(tgt[:1])], axis=0)
+    src = jnp.concatenate([src, jnp.zeros_like(src[:1])], axis=0)
+    ni_pad, nj_pad = tgt.shape[1], src.shape[1]
+    # inside shard_map the result varies over the mesh axes its inputs do
+    vma = jax.typeof(tgt).vma | jax.typeof(src).vma
 
     kernel = functools.partial(
-        _allpairs_kernel,
-        num_j_tiles=num_j_tiles,
-        tj=tj,
-        mass_scale=float(mass) * float(interaction_scale),
+        _kernel,
+        num_j_blocks=nj_pad // block_j,
+        block_j=block_j,
         eps2=float(softening_squared),
+        mass_scale=float(mass) * float(interaction_scale),
     )
-    accT = pl.pallas_call(
+    out = pl.pallas_call(
         kernel,
-        grid=(ni // ti,),
+        grid=(ni_pad // block_i,),
         in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),  # sources, streamed by DMA
-            pl.BlockSpec((ti, 4), lambda i: (i, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((4, block_i), lambda i: (0, i)),
+            pl.no_block_spec,
         ],
-        out_specs=pl.BlockSpec((ti, 4), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((ni, 4), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((4, 4, tj), jnp.float32),
-            pltpu.SemaphoreType.DMA((4,)),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
+        out_specs=pl.BlockSpec((4, block_i), lambda i: (0, i)),
+        out_shape=jax.ShapeDtypeStruct((4, ni_pad), jnp.float32, vma=vma),
+        compiler_params=pltriton.CompilerParams(
+            num_warps=num_warps, num_stages=num_stages
         ),
         cost_estimate=pl.CostEstimate(
-            flops=int(ni) * int(nj) * 20,
-            bytes_accessed=int(nj) * 16 * (ni // ti + 2),
-            transcendentals=int(ni) * int(nj),
+            flops=int(ni_pad) * int(nj_pad) * 20,
+            bytes_accessed=int(nj_pad) * 16 * (ni_pad // block_i) + ni_pad * 32,
+            transcendentals=int(ni_pad) * int(nj_pad),
         ),
-        interpret=interpret_flag(),
-    )(sources, posT)
-    return accT.T
+        interpret=interpret,
+        backend="triton",
+        name="all_pairs_accel",
+    )(tgt, src)
+    return out[:, :ni]
 
 
 def make_accel_fn(
     mass: float,
     softening_squared: float,
     interaction_scale: float = 1.0,
-    ti: int = DEFAULT_TI,
-    tj: int = DEFAULT_TJ,
-    half: bool = False,
+    interpret: bool = False,
 ):
     """Adapter matching the integrator's accel_fn signature
-    (position [4, Np] -> accel [3, Np]). `half` opts into the
-    Newton-3rd half-pair schedule (`all_pairs_accel_halfpair`)."""
+    (position [4, Np] -> accel [3, Np])."""
 
     def accel_fn(position: jax.Array) -> jax.Array:
-        if half:
-            out = all_pairs_accel_halfpair(
-                position,
-                mass=mass,
-                softening_squared=softening_squared,
-                interaction_scale=interaction_scale,
-            )
-        else:
-            out = all_pairs_accel_pallas(
-                position,
-                mass=mass,
-                softening_squared=softening_squared,
-                interaction_scale=interaction_scale,
-                ti=ti,
-                tj=tj,
-            )
-        return out[:3]
+        return all_pairs_accel_triton(
+            position,
+            mass=mass,
+            softening_squared=softening_squared,
+            interaction_scale=interaction_scale,
+            interpret=interpret,
+        )[:3]
 
     return accel_fn
-
-
-# -- Newton-3rd half-pair schedule (opt-in) ---------------------------------------
-#
-# Each [T, T] pair plane is computed ONCE for tile pairs j >= i and applied
-# to BOTH sides (the symmetry `bodyBodyInteraction`'s full rectangle never
-# exploited, nBodyGravityCS.hlsl:44-57): the i-side as lane reductions, the
-# j-side as negated sublane reductions into a VMEM accumulator that holds
-# ONE BAND of `kb` j-tiles (the whole [4, N] hits the 16 MiB scoped-VMEM
-# roof past ~250K — the round-3 rejection). One pallas_call per band;
-# i-side partials add across bands by linearity.
-#
-# Measured @1M (v5e fp32, 2026-08-19, experiments/allpairs_halfpair.py v7):
-# 0.216 Tpairs/s vs the rectangle kernel's 0.192 = +12.3% (t=512, kb flat
-# 64-256); t=256 REGRESSES to 0.171 — half-tiles double per-tile costs.
-# Results differ from the rectangle kernel only by accumulation order
-# (rel ~2.5e-6 @1M) — opt-in because trajectories are NOT bitwise
-# comparable with the default kernel (each variant is individually
-# deterministic run-to-run).
-
-_HALF_T = 512   # measured optimum; 256 regresses
-_HALF_KB = 128  # j-tiles per VMEM band (4*kb*t floats = 1 MiB at defaults)
-
-
-def _halfpair_kernel(pos_hbm, posT_i, iacc_out, jacc_out, buf, jacc, iacc,
-                     sem, *, j0_tiles, kb, tj, eps2):
-    pid = pl.program_id(0)            # i-tile index, 0..(j0_tiles + kb - 1)
-    xi = posT_i[:, 0:1]
-    yi = posT_i[:, 1:2]
-    zi = posT_i[:, 2:3]
-
-    @pl.when(pid == 0)
-    def _():
-        jacc[...] = jnp.zeros_like(jacc)
-
-    iacc[...] = jnp.zeros_like(iacc)
-
-    def dma(slot, jloc):
-        return pltpu.make_async_copy(
-            pos_hbm.at[:, pl.ds((j0_tiles + jloc) * tj, tj)],
-            buf.at[slot], sem.at[slot])
-
-    jloc0 = jnp.maximum(pid - j0_tiles, 0)
-    dma(jax.lax.rem(jloc0, 2), jloc0).start()
-
-    def body(jloc, _):
-        # static loop + predicated body: the 0.193 structure from the
-        # round-3 sweep (dynamic lower bounds measured 8% slower)
-        @pl.when(j0_tiles + jloc >= pid)
-        def _():
-            slot = jax.lax.rem(jloc, 2)
-
-            @pl.when(jloc + 1 < kb)
-            def _():
-                dma(1 - slot, jloc + 1).start()
-
-            dma(slot, jloc).wait()
-            tile = buf[slot]
-            dx = tile[0:1, :] - xi
-            dy = tile[1:2, :] - yi
-            dz = tile[2:3, :] - zi
-            d2 = dx * dx + dy * dy + dz * dz + jnp.float32(eps2)
-            inv = jax.lax.rsqrt(d2)
-            s = inv * inv * inv
-            tx = dx * s
-            ty = dy * s
-            tz = dz * s
-            iacc[:, 0:1] += jnp.sum(tx, axis=1, keepdims=True)
-            iacc[:, 1:2] += jnp.sum(ty, axis=1, keepdims=True)
-            iacc[:, 2:3] += jnp.sum(tz, axis=1, keepdims=True)
-
-            @pl.when(j0_tiles + jloc > pid)
-            def _():
-                sl = pl.ds(jloc * tj, tj)
-                jacc[0, sl] -= jnp.sum(tx, axis=0)
-                jacc[1, sl] -= jnp.sum(ty, axis=0)
-                jacc[2, sl] -= jnp.sum(tz, axis=0)
-
-        return 0
-
-    jax.lax.fori_loop(0, kb, body, 0)
-    iacc_out[:, :] = iacc[...]
-
-    @pl.when(pid == j0_tiles + kb - 1)
-    def _():
-        jacc_out[...] = jacc[...]
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("mass", "softening_squared", "interaction_scale",
-                     "t", "kb"),
-)
-def all_pairs_accel_halfpair(
-    position: jax.Array,
-    mass: float,
-    softening_squared: float,
-    interaction_scale: float = 1.0,
-    t: int = _HALF_T,
-    kb: int = _HALF_KB,
-) -> jax.Array:
-    """position [4, N] -> [4, N] (ax, ay, az, |a|) via the half-pair
-    schedule. Same contract as `all_pairs_accel_pallas` with
-    sources == position (the triangle needs the symmetric set; the
-    multi-chip ring keeps the rectangle kernel). Falls back to the
-    rectangle kernel when N doesn't tile into t-wide bands."""
-    n = position.shape[1]
-    if n % t or n // t < 2:
-        return all_pairs_accel_pallas(
-            position, mass=mass, softening_squared=softening_squared,
-            interaction_scale=interaction_scale)
-    posT = position.T
-    nt = n // t
-    acc = jnp.zeros((3, n), jnp.float32)
-    for j0 in range(0, nt, kb):
-        kbb = min(kb, nt - j0)
-        ni = j0 + kbb
-        nb = kbb * t
-        kernel = functools.partial(
-            _halfpair_kernel, j0_tiles=j0, kb=kbb, tj=t,
-            eps2=float(softening_squared))
-        iacc, jacc = pl.pallas_call(
-            kernel,
-            grid=(ni,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pl.ANY),
-                pl.BlockSpec((t, 4), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((t, 4), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((4, nb), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((ni * t, 4), jnp.float32),
-                jax.ShapeDtypeStruct((4, nb), jnp.float32),
-            ],
-            scratch_shapes=[pltpu.VMEM((2, 4, t), jnp.float32),
-                            pltpu.VMEM((4, nb), jnp.float32),
-                            pltpu.VMEM((t, 4), jnp.float32),
-                            pltpu.SemaphoreType.DMA((2,))],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("arbitrary",)),
-            cost_estimate=pl.CostEstimate(
-                flops=int(ni * t) * nb * 10,
-                bytes_accessed=int(ni * t) * 16 + nb * 16,
-                transcendentals=int(ni * t) * nb // 2),
-            interpret=interpret_flag(),
-        )(position, posT)
-        acc = acc.at[:, : ni * t].add(iacc.T[:3])
-        acc = acc.at[:, j0 * t: j0 * t + nb].add(jacc[:3])
-    a3 = acc * jnp.float32(float(mass) * float(interaction_scale))
-    amag = jnp.sqrt(jnp.sum(a3 * a3, axis=0, keepdims=True))
-    return jnp.concatenate([a3, amag], axis=0)

@@ -1,22 +1,25 @@
-"""Pallas TPU kernel for the segmented sprite composite.
+"""Segmented sprite composite as a Pallas kernel for the Triton route.
 
-The renderer's composite scan in XLA round-trips the whole virtual
-framebuffer (4 x [V, px] carry planes) through HBM on every one of Q scan
-steps. This kernel holds a block of rows in VMEM for the entire Q loop, so
-HBM traffic drops to: read params once + write the result once.
+The renderer's XLA formulation (`render/renderer.py`, the `lax.scan`
+branch of `_render`) is a device loop over the Q sprite slots of every
+virtual row, and each of its Q steps writes the four [V, px] carry
+planes back to device memory. This kernel keeps them in registers:
 
-Layout: pixel index on sublanes, virtual rows on lanes —
-- carry planes [px, VB] (px = TILE_H*TILE_W = 128 = one f32 sublane tile),
-- sprite params sp [8, Q, V]: a q-step's row [1, VB] broadcasts naturally
-  against [px, VB] planes. Q is consumed in sublane-aligned groups of 8
-  (dynamic second-minor slices must be 8-aligned on this toolchain).
+- one program per block of `block_v` virtual rows; the colour and
+  transmittance of the block's 8x16 tile pixels (px = 128) live in
+  registers for the whole Q loop;
+- each program loads its rows' live-slot bounds (`row_hi`) itself and
+  loops only to their maximum. Slots at or past a row's bound carry
+  alpha-scale 0, and blending alpha 0 is an exact identity, so stopping
+  early equals the full loop bit for bit;
+- device memory traffic is the sprite parameters read once and the
+  result written once.
 
-Channels: 0 cx, 1 cy, 2 1/(2hx), 3 1/(2hy), 4 r, 5 g, 6 b, 7 alpha-scale
-(zero for dead slots — blending a no-op). Output [4, px, V]: premultiplied
-r, g, b and transmittance, ready for the log-depth segment combine.
-
-Semantics identical to the XLA scan in render/renderer.py (associative
-over-composition with per-sprite source clamp); tests pin equivalence.
+Parameter channels of `sp` [8, Q, V]: 0 cx, 1 cy, 2 1/(2hx), 3 1/(2hy),
+4 r, 5 g, 6 b, 7 alpha-scale (zero for dead slots). Output [4, V, px]:
+premultiplied r, g, b and transmittance per virtual row, ready for the
+renderer's log-depth segment combine. Same arithmetic as the scan, so
+results agree to FMA contraction; tests pin the equivalence.
 """
 
 from __future__ import annotations
@@ -26,63 +29,48 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-from multi_adapter_particles_tpu.ops.dispatch import interpret_flag
+# Launch parameters (sweep: chip_smoke.py composite phase).
+DEFAULT_BLOCK_V = 16
+DEFAULT_NUM_WARPS = 4
 
 
-def _kernel(ng_ref, sp_ref, base_ref, out_ref, *, q_len, tile_h, tile_w,
-            blend):
-    vb = out_ref.shape[2]
-    px = tile_h * tile_w
-
-    pix = jax.lax.broadcasted_iota(jnp.int32, (px, vb), 0)
+def _kernel(sp_ref, base_ref, hi_ref, out_ref, *, tile_w, px, blend):
+    block_v = base_ref.shape[1]
+    v0 = pl.program_id(0) * block_v
+    pix = jax.lax.broadcasted_iota(jnp.int32, (1, px), 1)
     x_in = (pix % tile_w).astype(jnp.float32)
     y_in = (pix // tile_w).astype(jnp.float32)
-    pxc = base_ref[0:1, :] + x_in + 0.5     # [px, VB]
-    pyc = base_ref[1:2, :] + y_in + 0.5
+    pxc = base_ref[0, :][:, None] + x_in + 0.5      # [VB, px]
+    pyc = base_ref[1, :][:, None] + y_in + 0.5
+    n_live = jnp.max(hi_ref[...])
 
-    def blend_group(qg, carry):
+    def body(q, carry):
         cr, cg, cb, tt = carry
-        g = [sp_ref[c, pl.ds(qg * 8, 8), :] for c in range(8)]  # [8, VB] x8
-        for r in range(8):
-            scx = g[0][r : r + 1, :]
-            scy = g[1][r : r + 1, :]
-            ihx = g[2][r : r + 1, :]
-            ihy = g[3][r : r + 1, :]
-            sr = g[4][r : r + 1, :]
-            sg = g[5][r : r + 1, :]
-            sb = g[6][r : r + 1, :]
-            sa = g[7][r : r + 1, :]
-            du = (pxc - scx) * ihx
-            dv = (pyc - scy) * ihy
-            dist = jnp.sqrt(du * du + dv * dv)
-            alpha = jnp.clip(0.5 - dist, 0.0, 0.5) * sa      # [px, VB]
-            if blend == "over":
-                keep = 1.0 - alpha
-                cr = cr * keep + jnp.clip(sr * alpha, 0.0, 1.0)
-                cg = cg * keep + jnp.clip(sg * alpha, 0.0, 1.0)
-                cb = cb * keep + jnp.clip(sb * alpha, 0.0, 1.0)
-                tt = tt * keep
-            else:  # additive
-                cr = cr + jnp.clip(sr * alpha, 0.0, 1.0)
-                cg = cg + jnp.clip(sg * alpha, 0.0, 1.0)
-                cb = cb + jnp.clip(sb * alpha, 0.0, 1.0)
+        rows = pl.ds(v0, block_v)
+        scx, scy, ihx, ihy, sr, sg, sb, sa = (
+            sp_ref[c, q, rows][:, None] for c in range(8)
+        )                                           # each [VB, 1]
+        du = (pxc - scx) * ihx
+        dv = (pyc - scy) * ihy
+        dist = jnp.sqrt(du * du + dv * dv)
+        alpha = jnp.clip(0.5 - dist, 0.0, 0.5) * sa  # [VB, px]
+        if blend == "over":
+            keep = 1.0 - alpha
+            cr = cr * keep + jnp.clip(sr * alpha, 0.0, 1.0)
+            cg = cg * keep + jnp.clip(sg * alpha, 0.0, 1.0)
+            cb = cb * keep + jnp.clip(sb * alpha, 0.0, 1.0)
+            tt = tt * keep
+        else:  # additive
+            cr = cr + jnp.clip(sr * alpha, 0.0, 1.0)
+            cg = cg + jnp.clip(sg * alpha, 0.0, 1.0)
+            cb = cb + jnp.clip(sb * alpha, 0.0, 1.0)
         return cr, cg, cb, tt
 
-    zero = jnp.zeros((px, vb), jnp.float32)
-    one = jnp.ones((px, vb), jnp.float32)
-    # Dynamic trip count: this block only loops over Q-groups that hold a
-    # live slot in SOME of its rows (ng = max over the block's rows of
-    # ceil(row_hi/8), prefetched per block). Groups past every row's hi
-    # blend alpha-scale 0 -> exact identity (x*1 == x, +0 stays +0), so
-    # skipping them is bitwise-equal to the full loop; dead-tail blocks
-    # (ng == 0) write the identity carries outright. At 4M the virtual-row
-    # tail past row_end[-1] is ~40% of V — all skipped.
-    ng = ng_ref[pl.program_id(0)]
-    cr, cg, cb, tt = jax.lax.fori_loop(
-        0, ng, blend_group, (zero, zero, zero, one)
-    )
+    zero = jnp.zeros((block_v, px), jnp.float32)
+    one = jnp.ones((block_v, px), jnp.float32)
+    cr, cg, cb, tt = jax.lax.fori_loop(0, n_live, body, (zero, zero, zero, one))
     out_ref[0, :, :] = cr
     out_ref[1, :, :] = cg
     out_ref[2, :, :] = cb
@@ -90,77 +78,60 @@ def _kernel(ng_ref, sp_ref, base_ref, out_ref, *, q_len, tile_h, tile_w,
 
 
 @functools.partial(
-    jax.jit, static_argnames=("tile_h", "tile_w", "blend", "vb")
+    jax.jit,
+    static_argnames=(
+        "tile_h", "tile_w", "blend", "block_v", "num_warps", "interpret",
+    ),
 )
-def composite_rows_pallas(
-    sp: jax.Array,      # [8, Q, V] sprite params (Q multiple of 8)
+def composite_rows_triton(
+    sp: jax.Array,      # [8, Q, V] sprite params
     bases: jax.Array,   # [2, V] float32 tile base pixel coords (x, y)
+    row_hi: jax.Array,  # [V] int32 exclusive bound of each row's live slots
     tile_h: int,
     tile_w: int,
     blend: str = "over",
-    vb: int = 256,
-    row_hi: jax.Array | None = None,  # [V] int32 live-slot bound per row
+    block_v: int = DEFAULT_BLOCK_V,
+    num_warps: int = DEFAULT_NUM_WARPS,
+    interpret: bool = False,
 ) -> jax.Array:
-    """-> [4, px, V]: premultiplied rgb + transmittance per virtual row.
+    """-> [4, V, px]: premultiplied rgb + transmittance per virtual row.
 
-    `row_hi[v]` (optional) is the exclusive upper bound of row v's live
-    slots (the renderer's hi_k; 0 for dead rows). Slots at or past it
-    carry alpha-scale 0, so each grid block's Q loop runs only to the max
-    ceil(row_hi/8) over its rows — bitwise-equal to the full loop (zero
-    alpha blends as exact identity) but skipping the dead virtual-row
-    tail, ~40% of V at the 4M default. None -> every block loops full Q.
-
-    vb=256 measured best with the skip (experiments/composite_vb.py,
-    2026-08-19 on chip, bitwise-equal at every width): a narrower block
-    tightens the max-row_hi trip bound vs 512 at all sizes (262K 11.88
-    -> 10.66 ms, 1M 26.58 -> 25.01, 4M 95.87 -> 90.81 render-only);
-    128 edges it at 262K (10.42) but regresses at 4M (97.88).
-    """
+    Any V: the row axis is padded to whole blocks with dead rows
+    (alpha-scale 0, bound 0). `interpret=True` runs the kernel in the
+    Pallas interpreter (tests on the CPU)."""
     _, q_len, v = sp.shape
-    if q_len % 8:
-        raise ValueError("Q must be a multiple of 8")
-    # pad the row axis to the block multiple (lane dims must be 128-divisible
-    # blocks); padded rows have zero alpha-scale -> identity composites
-    pad = (-v) % vb
+    px = tile_h * tile_w
+    pad = (-v) % block_v
+    hi = jnp.clip(row_hi.astype(jnp.int32), 0, q_len)
     if pad:
         sp = jnp.pad(sp, ((0, 0), (0, 0), (0, pad)))
         bases = jnp.pad(bases, ((0, 0), (0, pad)))
+        hi = jnp.pad(hi, (0, pad))
     vp = v + pad
-    px = tile_h * tile_w
+    # inside shard_map the result varies over the mesh axes its inputs do
+    vma = jax.typeof(sp).vma | jax.typeof(bases).vma | jax.typeof(hi).vma
 
-    if row_hi is None:
-        blk_ng = jnp.full((vp // vb,), q_len // 8, jnp.int32)
-    else:
-        hi = jnp.clip(row_hi.astype(jnp.int32), 0, q_len)
-        if pad:
-            hi = jnp.pad(hi, (0, pad))
-        blk_hi = jnp.max(hi.reshape(vp // vb, vb), axis=1)
-        blk_ng = (blk_hi + 7) // 8
-
-    kernel = functools.partial(
-        _kernel, q_len=q_len, tile_h=tile_h, tile_w=tile_w, blend=blend
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(vp // vb,),
-        in_specs=[
-            pl.BlockSpec((8, q_len, vb), lambda i, ng: (0, 0, i)),
-            pl.BlockSpec((2, vb), lambda i, ng: (0, i)),
-        ],
-        out_specs=pl.BlockSpec((4, px, vb), lambda i, ng: (0, 0, i)),
-    )
+    kernel = functools.partial(_kernel, tile_w=tile_w, px=px, blend=blend)
     out = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((4, px, vp), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
+        grid=(vp // block_v,),
+        in_specs=[
+            pl.no_block_spec,
+            pl.BlockSpec((2, block_v), lambda i: (0, i)),
+            pl.BlockSpec((block_v,), lambda i: (i,)),
+        ],
+        out_specs=pl.BlockSpec((4, block_v, px), lambda i: (0, i, 0)),
+        out_shape=jax.ShapeDtypeStruct((4, vp, px), jnp.float32, vma=vma),
+        compiler_params=pltriton.CompilerParams(
+            num_warps=num_warps, num_stages=1
         ),
         cost_estimate=pl.CostEstimate(
             flops=int(vp) * int(q_len) * px * 14,
-            bytes_accessed=int(vp) * (q_len * 32 + px * 16 + 8),
+            bytes_accessed=int(vp) * (q_len * 32 + px * 16 + 12),
             transcendentals=int(vp) * int(q_len) * px,
         ),
-        interpret=interpret_flag(),
-    )(blk_ng, sp, bases)
-    return out[:, :, :v] if pad else out
+        interpret=interpret,
+        backend="triton",
+        name="composite_rows",
+    )(sp, bases, hi)
+    return out[:, :v] if pad else out

@@ -24,7 +24,7 @@ O(N) central well of `particleCS.hlsl` and the O(N²) exact sum of
 `nBodyGravityCS.hlsl:44-57`); it uses the same pair law and softening as
 the latter so it slots in as `force_model="p3m"`.
 
-TPU-native construction, same toolbox as `ops/pm.py` (sorts, not
+Construction with the same toolbox as `ops/pm.py` (sorts, not
 scatters; shifted slices, not neighbor gathers):
 - Binning: one sort by near-cell id carrying (x, y, z, pid); per-cell
   slot table [Gn³, K] built from merge-by-sort segment bounds. K
@@ -209,7 +209,6 @@ def _accel_rows_long(rho, grid: int, box: float, g_const: float,
     az = pm._irfft_pruned(fr * kz, g) * scale
 
     # lane-packed [G³/4, 128] corner rows — see pm._pack_corner_rows
-    # (the [G³, 32] form lane-pads 4x in the tiled layout: 29 GB @G=384)
     return pm._pack_corner_rows(ax, ay, az, g)
 
 
@@ -257,12 +256,11 @@ def _near_sweep(slots, gn: int, capacity: int, g_const: float,
     (x, y, z, 0 — the zero channel makes 16 B rows for the un-binning
     lane-packed gather).
 
-    Layout is the whole game on the VPU: the pair tensors are THREE
+    Layout matters most here: the pair tensors are THREE
     separate [gn, gn, gn, K, K] component arrays with sources on the
-    128-lane (last) axis and targets on sublanes — a stacked
-    [..., K, K, 3] formulation puts 3 on the lanes and wastes 125/128
-    of the vector width (measured ~400x off ideal). The source-axis
-    reduction is a cross-lane sum XLA handles natively."""
+    minor (last) axis — a stacked [..., K, K, 3] formulation puts a
+    length-3 axis minor, which pads and strides badly. The source-axis
+    reduction is a minor-axis sum XLA handles natively."""
     k = capacity
     sigma = r_c * _SIGMA_PER_CUTOFF
     comp = slots.reshape(gn, gn, gn, k, 4)
@@ -344,8 +342,7 @@ def near_field_correction(
     jax.jit,
     static_argnames=(
         "grid", "box", "g_const", "softening_squared", "cutoff_cells",
-        "capacity", "near_mode", "pair_budget", "sub_pair_budget",
-        "with_potential", "half_force",
+        "capacity", "near_mode", "pair_budget", "with_potential",
     ),
 )
 def p3m_accel_with_overflow(
@@ -358,9 +355,7 @@ def p3m_accel_with_overflow(
     capacity: int = 64,
     near_mode: str = "slots",
     pair_budget: int | None = None,
-    sub_pair_budget: int | None = None,
     with_potential: bool = False,
-    half_force: bool = False,
 ):
     """-> (accel [3, N], overflow): mesh long-range + pairwise short-range.
 
@@ -397,9 +392,7 @@ def p3m_accel_with_overflow(
 
         near = near_field_tree(
             position, box, g_const, softening_squared, r_c, gn,
-            pair_budget=pair_budget, sub_pair_budget=sub_pair_budget,
-            with_potential=with_potential,
-            half_force=half_force and not with_potential,
+            pair_budget=pair_budget, with_potential=with_potential,
         )
         if with_potential:
             a_near, u_near, overflow = near
@@ -438,7 +431,6 @@ def p3m_potential_with_overflow(
     softening_squared: float = 25.0,
     cutoff_cells: float = 6.75,
     pair_budget: int | None = None,
-    sub_pair_budget: int | None = None,
     half_pairs: bool = False,
 ):
     """-> (u [N], overflow): the potential HALF of
@@ -446,7 +438,7 @@ def p3m_potential_with_overflow(
     force work — no gradient field solves, potential-only near sweep
     (~2x fewer pair ops). u matches the fused variant's to fusion-level
     rounding (same scalar mesh solve, same pair list, same accumulation
-    order; bitwise on the Pallas sweep, ~1 ULP on the XLA fallback).
+    order; ~1 ULP).
     The diagnostics gauge uses this when the run's own accel is threaded
     in for the half-kick instead of recomputing a tree force.
     `half_pairs`: Newton-3rd halved near sweep (~2x fewer pair
@@ -461,7 +453,7 @@ def p3m_potential_with_overflow(
     rho = pm.deposit_cic(position, grid, box)
     u_near, overflow = near_field_tree(
         position, box, g_const, softening_squared, r_c, gn,
-        pair_budget=pair_budget, sub_pair_budget=sub_pair_budget,
+        pair_budget=pair_budget,
         with_potential=True, potential_only=True, half_pairs=half_pairs,
     )
     rows_phi = _potential_rows_long(rho, grid, box, g_const, r_c)
@@ -482,7 +474,6 @@ def p3m_potential_total_with_overflow(
     softening_squared: float = 25.0,
     cutoff_cells: float = 6.75,
     pair_budget: int | None = None,
-    sub_pair_budget: int | None = None,
     half_pairs: bool = True,
 ):
     """-> (sum_u scalar, overflow): `sum(p3m_potential_with_overflow()[0])`
@@ -512,7 +503,7 @@ def p3m_potential_total_with_overflow(
     rho = pm.deposit_cic(position, grid, box)
     u_near_total, overflow = near_field_tree(
         position, box, g_const, softening_squared, r_c, gn,
-        pair_budget=pair_budget, sub_pair_budget=sub_pair_budget,
+        pair_budget=pair_budget,
         with_potential=True, potential_only=True, half_pairs=half_pairs,
         total_only=True,
     )
@@ -560,8 +551,6 @@ def make_accel_fn(
     capacity: int = 64,
     near_mode: str = "slots",
     pair_budget: int | None = None,
-    sub_pair_budget: int | None = None,
-    half_force: bool = False,
 ):
     """Adapter matching the integrator's accel_fn signature."""
     if near_mode == "auto":
@@ -574,7 +563,6 @@ def make_accel_fn(
             softening_squared=softening_squared,
             cutoff_cells=cutoff_cells, capacity=capacity,
             near_mode=near_mode, pair_budget=pair_budget,
-            sub_pair_budget=sub_pair_budget, half_force=half_force,
         )
 
     return accel_fn

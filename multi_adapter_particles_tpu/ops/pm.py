@@ -14,14 +14,13 @@ with the same mass and softening as the all-pairs model
 for separations ≳ 2 cells; sub-cell structure is smoothed by CIC + the
 finite-difference stencil.
 
-TPU-native construction (FFTs lower to matmuls on TPU — the MXU does the
-field solve) with no scatters and no binary searches anywhere; everything
-irregular is a sort (the TPU's scatter):
+Construction with no scatters and no binary searches anywhere;
+everything irregular is a sort (whether a plain `.at[].add` scatter
+beats it on the GPU is open, ROADMAP S3):
 - **Deposit**: ONE sort of base cell ids carrying the three CIC fractions
   (the 8 corner weights are recomputed post-sort — payloads cost
-  per-operand). Per-cell boundaries come from a merge-by-sort (profiled
-  on v5e @4M/G=128: `jnp.searchsorted` with G³ queries costs 320 ms —
-  84% of the whole deposit — while two extra cheap sorts cost ~7 ms):
+  per-operand). Per-cell boundaries come from a merge-by-sort instead
+  of `jnp.searchsorted` with G³ queries (a while loop of random gathers):
   sort `concat(2*cells, 2*keys+1)`, compact the even (query) entries
   with a second keyed sort, and read boundary positions off the result.
   Then one cumsum over the 8 corner-weight channels + ONE row-gather at
@@ -33,12 +32,10 @@ irregular is a sort (the TPU's scatter):
 - **Differentiate**: 2nd-order central differences on the potential grid.
 - **Interpolate**: the whole 2x2x2 accel neighborhood packs into one
   32-float row per cell, stored LANE-PACKED as [G³/4, 128] lines (4
-  cells per 128-lane line — built directly by `_pack_corner_rows`; a
-  [G³, 32] value would lane-pad 4x in the T(8,128) tiled layout, 29 GB
-  at G=384), so trilinear interpolation costs a single row-gather per
-  particle — issued through the lane-packed gather (`ops/rowgather.py`
-  with `packed_w=32`: 2.7x over the plain narrow gather; a cell-sorted
-  issue order measured NO faster than particle order). The rows must
+  cells per 128-wide line — built directly by `_pack_corner_rows`), so
+  trilinear interpolation costs a single row-gather per particle —
+  issued through the lane-packed gather (`ops/rowgather.py` with
+  `packed_w=32`). The rows must
   stay fp32: the self-field cancellation across corners breaks in bf16
   (see `_accel_rows`).
 """
@@ -101,8 +98,8 @@ def _sort_by_cell(position: jax.Array, grid: int, box: float):
 
 def _segment_bounds(sbase: jax.Array, ncell: int) -> jax.Array:
     """bounds[c] = #{i : sbase[i] < c} for c in 0..ncell, WITHOUT
-    `jnp.searchsorted` (G³ binary searches over N sorted keys measured
-    320 ms @4M/G=128 on v5e — 84% of the deposit). Merge-by-sort instead:
+    `jnp.searchsorted` (G³ binary searches over N sorted keys).
+    Merge-by-sort instead:
 
     - sort concat(2c for the G³+1 query cells, 2k+1 for the particle keys):
       query c lands immediately BEFORE the keys equal to c (side='left'),
@@ -110,8 +107,8 @@ def _segment_bounds(sbase: jax.Array, ncell: int) -> jax.Array:
     - recover those positions by a second 2-op sort that compacts the even
       (query) entries to the front carrying their merged index.
 
-    Two cheap sorts (~10 ms total at the same size) — bitwise identical
-    bounds to the searchsorted they replace.
+    Two cheap sorts — bitwise identical bounds to the searchsorted they
+    replace.
     """
     m = sbase.shape[0]
     queries = jnp.arange(ncell + 1, dtype=jnp.int32) * 2
@@ -261,9 +258,8 @@ def _grad_pack(phi: jax.Array, grid: int, box: float) -> jax.Array:
     return _pack_corner_rows(ax, ay, az, g)
 
 
-_PACK_SLAB_CELLS = 1 << 20  # cells per _pack_corner_rows slab (the
-#                             [slab_cells, 32] transient pads 4x in
-#                             T(8,128); 1M cells ~= 0.5 GB padded)
+_PACK_SLAB_CELLS = 1 << 20  # cells per _pack_corner_rows slab: bounds
+#                             the [slab_cells, 32] transient
 
 
 def _pack_corner_rows(ax, ay, az, g: int) -> jax.Array:
@@ -272,13 +268,9 @@ def _pack_corner_rows(ax, ay, az, g: int) -> jax.Array:
     Line l holds the 32-float rows of cells 4l..4l+3 (8 corners x
     [ax, ay, az, 0] each) — exactly `rows([G³,32]).reshape(G³/4, 128)`,
     the form `rowgather.gather_rows(..., packed_w=32)` consumes, but
-    built WITHOUT ever materializing a [G³, 32]-shaped value: any array
-    whose minor dim is 32 (or 4) lands in the T(8,128) tiled layout
-    lane-padded to 128, a G³x512-byte allocation — 29.0 GB at G=384,
-    which failed AOT compile on the 16 GiB chip (2026-08-19) and made
-    grids >256 infeasible. Building the packed form slab-by-slab under
-    `lax.map` bounds the padded transient to one z-slab (~0.5 GB) and
-    the output tiles natively at G³x128x4 B (7.25 GB at 384).
+    built WITHOUT ever materializing a whole [G³, 32]-shaped value:
+    building the packed form slab-by-slab under `lax.map` bounds the
+    narrow transient to one z-slab, and the output is G³x128 B.
 
     Bitwise identical to the old concatenate-then-relayout rows: pure
     copies, same corner order (dz, dy, dx row-major; lane j*32+c*4+comp
@@ -324,9 +316,8 @@ def _pack_scalar_corner_rows(phi: jax.Array, g: int) -> jax.Array:
     the 8-float corner rows of cells 16l..16l+15 — [G³/16, 128], the
     `rowgather.gather_rows(..., packed_w=8)` form. Same corner order as
     `_pack_corner_rows` (dz, dy, dx row-major), same slab-by-slab
-    construction bounding the [slab_cells, 8] transient (which lane-pads
-    16x in T(8,128)) to ~0.5 GB; the output is 32 B/cell — 0.5 GB at
-    G=256, so the potential gauge fits wherever the force rows do.
+    construction bounding the [slab_cells, 8] transient; the output is
+    32 B/cell, so the potential gauge fits wherever the force rows do.
 
     Grids whose g³ isn't 16-divisible (g < 4, never produced by
     AUTO_GRID_LADDER) fall back to plain [g³, 8] rows — `gather_rows`

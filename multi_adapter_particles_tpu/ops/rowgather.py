@@ -1,18 +1,11 @@
-"""Lane-packed random row gather: the fast way to gather narrow rows.
+"""Lane-packed random row gather.
 
-XLA's TPU gather moves one row per issue regardless of how few lanes the
-row fills, so gathering [N] random rows from a [R, W] table with W < 128
-wastes most of the 128-lane vector unit AND pays the full per-row issue
-latency. Measured on one v5e (4M random rows, [2M, 32] fp32 table):
-
-    plain table[idx]                       160 ms   (38 ns/row)
-    pack 4 rows/128 lanes + select          60 ms   (14 ns/row)  2.7x
-
-even though the packed form reads 4x the bytes per row — the gather is
-issue-bound, not bandwidth-bound, and a 128-lane row costs the same
-issue as a 32-lane one. A hand-rolled Pallas DMA pipeline was also
-measured and REJECTED (46 ns/row: per-copy scalar issue cost exceeds
-XLA's native gather; see experiments/rowgather_pallas.py).
+Gathering [N] random rows from a narrow [R, W] table (W < 128) issues
+one row per index however few elements the row holds. Packing 128//W
+rows into one 128-wide line and selecting the sub-row afterwards makes
+each issue move a whole line; it reads more bytes per row, and pays off
+where the gather is issue-bound rather than bandwidth-bound. Whether it
+still wins over the plain gather on the GPU is open (ROADMAP D5).
 
 `gather_rows` packs P = 128//W table rows per 128-lane line, gathers
 line idx//P, and selects sub-row idx%P with a compare/select chain
@@ -26,7 +19,11 @@ import jax
 import jax.numpy as jnp
 
 
-_MAX_LINE_BYTES = 1 << 31  # cap the materialized [N, 128] gather at 2 GiB
+def _max_line_bytes() -> int:
+    """Cap on the materialized [N, 128] gather: 1/8 of device memory."""
+    from multi_adapter_particles_tpu.ops.dispatch import memory_limit_bytes
+
+    return memory_limit_bytes() // 8
 
 
 def gather_rows(table: jax.Array, idx: jax.Array,
@@ -36,8 +33,7 @@ def gather_rows(table: jax.Array, idx: jax.Array,
     Packs narrow rows into 128-lane lines when profitable (W < 128 and
     W | 128); otherwise falls back to the plain gather. Very large N
     chunk through `lax.map` so the widened [N, 128] intermediate stays
-    bounded (at 16.8M rows it would otherwise be 8.6 GB — measured OOM
-    on a 16 GB v5e inside the PM step).
+    bounded (at 16.8M rows it would otherwise be 8.6 GB).
 
     `packed_w=w`: the table is ALREADY lane-packed — [R/P, P*w] lines of
     P = 128//w logical rows each (e.g. pm._pack_corner_rows output,
@@ -74,9 +70,10 @@ def gather_rows(table: jax.Array, idx: jax.Array,
 
     n = idx.shape[0]
     line_bytes = 128 * table.dtype.itemsize
-    if n * line_bytes <= _MAX_LINE_BYTES:
+    max_bytes = _max_line_bytes()
+    if n * line_bytes <= max_bytes:
         return _do(idx)
-    chunk = _MAX_LINE_BYTES // line_bytes
+    chunk = max_bytes // line_bytes
     k = -(-n // chunk)
     idx_pad = jnp.concatenate(
         [idx, jnp.zeros(k * chunk - n, idx.dtype)]

@@ -1,11 +1,12 @@
-"""Multi-chip parallelism: mesh sharding, ring force exchange, resharding.
+"""Multi-device parallelism: mesh sharding, ring force exchange, resharding.
 
 The reference's multi-adapter mode (compute on one GPU, render on another,
 copy queue between — `Compute.cpp:163-251`, `Render.cpp:789-831`) maps to:
 
 - particle state sharded over a `jax.sharding.Mesh` along the particle axis,
 - the all-pairs force as a **ring**: each stage computes forces from the
-  resident position block while `ppermute` rotates the next block over ICI —
+  resident position block while `ppermute` rotates the next block to the
+  neighbour device —
   structurally identical to ring attention, applied to particle tiles
   (SURVEY §5 "long-context" analog),
 - the render feed as a gather of the sharded positions onto the render

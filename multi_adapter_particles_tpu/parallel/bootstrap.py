@@ -1,8 +1,8 @@
-"""Multi-host / multi-process bootstrap for pod-scale runs.
+"""Multi-host / multi-process bootstrap for cluster-scale runs.
 
-The reference is single-host multi-GPU; pods add a layer it never had:
-multiple host processes, each owning a subset of chips, coordinated over
-DCN. This wrapper makes the rest of the framework work unchanged there:
+The reference is single-host multi-GPU; clusters add a layer it never
+had: multiple host processes, each owning a subset of the devices,
+coordinated over the inter-host network. This wrapper makes the rest of the framework work unchanged there:
 after `initialize()`, `jax.devices()` is the GLOBAL device list, so
 `make_mesh()` / `make_multislice_mesh()` and the sharded step build global
 meshes; per-host data feeding is not needed (state is initialized on
@@ -29,18 +29,16 @@ def initialize(
     """Initialize jax.distributed when running under a multi-process
     launcher; no-op (returns False) in single-process runs.
 
-    Auto-detects standard TPU pod env vars via jax.distributed when all
-    args are None; explicit args override (the JAX_COORDINATOR_ADDRESS /
-    NUM_PROCESSES / PROCESS_ID convention).
+    Explicit args override the environment (the
+    JAX_COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID convention).
     """
     # Launched iff a coordinator is named (arg or env). Deliberately NOT
-    # keyed on TPU_WORKER_ID: worker 0 of a pod carries id "0" and would be
-    # indistinguishable from a plain single host — half-initialized pods
-    # hang at startup.
+    # keyed on a worker-id variable: worker 0 carries id "0" and would be
+    # indistinguishable from a plain single host — half-initialized
+    # clusters hang at startup.
     launched = (
         coordinator_address is not None
         or os.environ.get("JAX_COORDINATOR_ADDRESS")
-        or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS")
     )
     if not launched:
         return False

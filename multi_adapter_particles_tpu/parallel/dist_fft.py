@@ -1,8 +1,8 @@
 """Distributed free-space FFT convolution: slab/pencil decomposition.
 
-Scales the PM field solve past single-chip grids (G >= 256: the doubled
+Scales the PM field solve past one-device grids (G >= 256: the doubled
 spectrum alone is [2G, 2G, G+1] c64 = 540 MB) by decomposing over the
-mesh's inner (ICI) axis, the standard HPC pencil pipeline re-expressed
+mesh's inner (intra-host) axis, the standard HPC pencil pipeline re-expressed
 with XLA collectives:
 
     partial deposits --psum_scatter--> z-slabs [G/D, G, G]
@@ -16,7 +16,7 @@ with XLA collectives:
     all_gather                        [G, G, G] phi on every device
 
 Each device transforms 1/D of the pencils in every stage and holds 1/D
-of the kernel spectrum; the two all_to_alls ride ICI. The axis-pruned
+of the kernel spectrum; the two all_to_alls stay inside the host. The axis-pruned
 zero-padding of `ops/pm._convolve_pruned` carries over: forward axes
 pad lazily (fft(n=2G) on G-tall input) and inverse axes slice as soon
 as they are done.

@@ -2,8 +2,8 @@
 
 One logical axis, `"particles"`: the only scalable dimension in this workload
 (SURVEY §2.2 — there is no sequence/batch/expert axis). The mesh is 1-D so
-`ppermute` rides neighbor ICI links; multi-slice (DCN) layouts would add an
-outer axis, with the ring kept inside each slice.
+`ppermute` rides neighbour links inside one host; multi-host layouts add
+an outer axis, with the ring kept inside each host.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 AXIS = "particles"
-OUTER_AXIS = "slices"  # the DCN dimension in multi-slice layouts
+OUTER_AXIS = "slices"  # the inter-host dimension of multi-host layouts
 
 
 def make_mesh(
@@ -34,8 +34,9 @@ def make_multislice_mesh(
     num_slices: int,
     devices: Optional[Sequence[jax.Device]] = None,
 ) -> Mesh:
-    """2-D (slices, particles) mesh: the outer axis crosses slice (DCN)
-    boundaries, the inner axis stays on ICI. The hierarchical ring in
+    """2-D (slices, particles) mesh: the outer axis crosses host
+    boundaries (inter-host network), the inner axis stays inside one host
+    (intra-host links). The hierarchical ring in
     `make_sharded_step` keeps the high-rate block rotation on the inner
     axis and amortizes one slow outer rotation per full inner cycle."""
     if devices is None:

@@ -33,7 +33,7 @@ class MeshComputeEngine:
         metrics: Optional[MetricsRegistry] = None,
         prev=None,
         seed: int = 0,
-        use_pallas: Optional[bool] = None,
+        all_pairs_impl: Optional[str] = None,
         donate: bool = True,
         bit_stable: Optional[bool] = None,
     ):
@@ -41,7 +41,7 @@ class MeshComputeEngine:
         self.mesh = mesh
         self.metrics = metrics or MetricsRegistry()
         self._step = shmod.make_sharded_step(
-            sim_config, mesh, use_pallas=use_pallas, donate=donate,
+            sim_config, mesh, all_pairs_impl=all_pairs_impl, donate=donate,
             bit_stable=bit_stable,
         )
         self.step_count = 0

@@ -1,15 +1,15 @@
-"""Sharded simulation step: shard_map + ring position exchange over ICI.
+"""Sharded simulation step: shard_map + ring position exchange between devices.
 
 The copy-queue-overlaps-compute idea (`Render.cpp:789-831`: transfer of frame
 N's results runs while N-1 draws and N+1 simulates) becomes, inside one chip
 step, the ring schedule: at stage s every device computes partial forces from
 the position block it holds while `ppermute` already rotates that block to
-the neighbor — ICI transfer hides behind the O(n_local * n_block) force math.
+the neighbor — the transfer hides behind the O(n_local * n_block) force math.
 After D stages every device has accumulated forces from all N bodies.
 
-Per-device force math goes through the same kernels as single-chip
-(`ops/allpairs.py` Pallas on TPU, pure XLA elsewhere), so multi-chip is a
-composition, not a re-implementation.
+Per-device force math goes through the same implementation as one device
+(`ops/dispatch.all_pairs_impl`: the Triton kernel on GPUs, XLA elsewhere),
+so the mesh path is a composition, not a re-implementation.
 
 The central-well model needs no communication at all (embarrassingly
 particle-parallel): its sharded step is just the single-chip step under a
@@ -28,8 +28,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from multi_adapter_particles_tpu.config import SimConfig
 from multi_adapter_particles_tpu.models import integrator
 from multi_adapter_particles_tpu.models.state import ParticleState
-from multi_adapter_particles_tpu.ops import allpairs
-from multi_adapter_particles_tpu.ops.dispatch import pallas_supported
+from multi_adapter_particles_tpu.ops import allpairs, dispatch
 from multi_adapter_particles_tpu.parallel import dist_fft
 from multi_adapter_particles_tpu.parallel.mesh import (
     AXIS,
@@ -48,16 +47,17 @@ def shard_state(state: ParticleState, mesh: Mesh) -> ParticleState:
     )
 
 
-def _partial_accel_fn(cfg: SimConfig, use_pallas: bool) -> Callable:
-    """(targets [4, ni], sources [4, nj]) -> accel [3, ni], unscaled order."""
-    if use_pallas:
+def _partial_accel_fn(cfg: SimConfig, impl: str) -> Callable:
+    """(targets [4, ni], sources [4, nj]) -> accel [3, ni]."""
+    if impl != dispatch.XLA:
         def f(targets, sources):
-            return allpairs.all_pairs_accel_pallas(
+            return allpairs.all_pairs_accel_triton(
                 targets,
                 mass=cfg.mass,
                 softening_squared=cfg.softening_squared,
                 interaction_scale=cfg.interaction_scale,
                 sources=sources,
+                interpret=impl == dispatch.TRITON_INTERPRET,
             )[:3]
         return f
 
@@ -75,7 +75,7 @@ def _partial_accel_fn(cfg: SimConfig, use_pallas: bool) -> Callable:
 def make_sharded_step(
     cfg: SimConfig,
     mesh: Mesh,
-    use_pallas: Optional[bool] = None,
+    all_pairs_impl: Optional[str] = None,
     donate: bool = True,
     bit_stable: Optional[bool] = None,
 ) -> Callable[[ParticleState], ParticleState]:
@@ -94,10 +94,9 @@ def make_sharded_step(
       device reduces sources in identical global order, so trajectories
       are BITWISE identical across any mesh size — including 1 — and
       across live re-sharding (SURVEY §7 hard part 5: "bit-stable
-      trajectories across re-sharding"). The gather costs O(N) bytes of
-      ICI up front, negligible next to the O(N²/D) force math at any size
-      this model runs (@1M: ~0.5 ms of ICI vs ~46 ms of compute per
-      8-shard step).
+      trajectories across re-sharding"). The gather moves O(N) bytes
+      between devices up front, small next to the O(N²/D) force math at
+      any size this model runs.
     - False: the rotating ppermute ring (the copy-queue-overlap analog,
       `Render.cpp:789-831`): blocks stream neighbor-to-neighbor with the
       transfer hidden behind each stage's force math. Accumulation order
@@ -110,23 +109,18 @@ def make_sharded_step(
     multislice = OUTER_AXIS in mesh.axis_names
     n_inner = mesh.shape[AXIS]
     n_outer = mesh.shape[OUTER_AXIS] if multislice else 1
-    if use_pallas is None:
-        use_pallas = pallas_supported() and all(
-            d.platform == "tpu" for d in mesh.devices.ravel()
-        )
-    # NOTE: Pallas j-tiles are 128-aligned DMA lane slices; a shard narrower
-    # than 128 has no valid tiling and ops.dispatch.pick_tile raises a clear
-    # error at trace time (pass use_pallas=False for such tiny shards).
+    if all_pairs_impl is None:
+        all_pairs_impl = dispatch.all_pairs_impl(mesh.devices.ravel())
     if bit_stable is None:
         bit_stable = True
-    partial_accel = _partial_accel_fn(cfg, use_pallas)
+    partial_accel = _partial_accel_fn(cfg, all_pairs_impl)
     inner_perm = [(i, (i + 1) % n_inner) for i in range(n_inner)]
     outer_perm = [(i, (i + 1) % n_outer) for i in range(n_outer)]
 
     def gathered_sources(position):
         """Full [4, N] source set in global particle order on every device:
-        inner (ICI) gather concatenates the shards of this slice, the outer
-        (DCN) gather concatenates slices — matching the slice-major layout
+        inner (intra-host) gather concatenates the shards of this slice, the
+        outer (inter-host) gather concatenates slices — matching the slice-major layout
         of `particle_sharding`."""
         src = position
         if n_inner > 1:
@@ -137,10 +131,10 @@ def make_sharded_step(
 
     def ring_cycle(position, acc, block, final: bool):
         """One full inner-ring cycle: consume n_inner blocks, rotating over
-        the ICI axis; the ppermute is issued BEFORE the force math so the
+        the intra-host axis; the ppermute is issued BEFORE the force math so the
         transfer overlaps compute (async collective). Unless `final`, one
         last rotation returns every block to its starting slot so the next
-        outer (DCN) hop ships the right set."""
+        outer (inter-host) hop ships the right set."""
         if n_inner > 1:
             def body(carry, _):
                 acc, blk = carry
@@ -278,8 +272,8 @@ def make_sharded_step(
             accel = partial_accel(position, gathered_sources(position))
         else:
             # Hierarchical ring (single-slice: plain ring): each outer
-            # stage rotates the working block set one slice over DCN, and
-            # that one slow hop amortizes over a full inner ICI cycle.
+            # stage rotates the working block set one slice between hosts,
+            # and that one slow hop amortizes over a full inner cycle.
             zero = position[:3] * jnp.zeros((), position.dtype)
             acc, block = ring_cycle(
                 position, zero, position, final=(n_outer == 1)
@@ -326,6 +320,12 @@ def make_sharded_step(
             mesh=mesh,
             in_specs=(spec, spec, kernel_spec),
             out_specs=(spec, spec),
+            # a Pallas kernel's body carries no varying-axes types; the
+            # per-device force is purely local, so skip that check for it
+            check_vma=not (
+                cfg.force_model == "all_pairs"
+                and all_pairs_impl != dispatch.XLA
+            ),
         )
 
     # The kernel slab must ride as a jit ARGUMENT, not a closure constant:
@@ -349,9 +349,9 @@ def make_sharded_step(
 def gather_positions(state: ParticleState, device: jax.Device) -> jax.Array:
     """All shards -> one device (the render feed / copy-queue analog).
 
-    On a multi-process (pod) run the state spans non-addressable devices;
+    On a multi-process run the state spans non-addressable devices;
     the feed then goes through a cross-host allgather first (every process
-    pays the DCN gather; only the primary renders — `bootstrap.is_primary`).
+    pays the inter-host gather; only the primary renders — `bootstrap.is_primary`).
     """
     pos = state.position
     if not pos.is_fully_addressable:

@@ -12,7 +12,7 @@ PRESETS = {
         "app": {"num_particles": 10_240, "gui": False, "vsync": False},
         "extra": {"force": "all_pairs", "draw": False, "steps": 200},
     },
-    # 100k single-chip: blocked Pallas force kernel, ping-pong state
+    # 100k on one device: the blocked Pallas (Triton) force kernel
     "100k-pallas": {
         "app": {"num_particles": 102_400, "gui": False, "vsync": False},
         "extra": {"force": "all_pairs", "draw": False, "steps": 100},
@@ -24,25 +24,24 @@ PRESETS = {
             "width": 1280, "height": 720, "steps": 120, "profile_every": 10,
         },
     },
-    # 1M sharded across 8 devices: ring all-gather over ICI
+    # 1M sharded across 8 devices: positions all-gathered between devices
     "1m-mesh8": {
         "app": {"num_particles": 1_048_576, "gui": False, "vsync": False},
         "extra": {"force": "all_pairs", "mesh_devices": 8, "steps": 20},
     },
-    # 4M with fused async sim/render overlap (single chip)
+    # 4M with fused async sim/render overlap (one device)
     "4m-fused": {
         "app": {"num_particles": 4_194_304, "vsync": False},
         "extra": {"fused": True, "steps": 60},
     },
-    # 4M SELF-gravity via FFT particle-mesh (exceeds the reference: the
-    # exact O(N^2) sum takes 94 s/step at 4M; PM does it in ~86 ms)
+    # 4M SELF-gravity via FFT particle-mesh (exceeds the reference: PM is
+    # O(N + G^3 log G) where the exact sum is O(N^2))
     "4m-pm": {
         "app": {"num_particles": 4_194_304, "gui": False, "vsync": False},
         "extra": {"force": "pm_grid", "draw": False, "steps": 30},
     },
-    # 16.8M self-gravity + exact splat on ONE chip: PM G=128 ~550 ms/step
-    # + chunked-composite render ~320 ms (the interp's fused gather+weight
-    # chunks keep the pipelined peak inside the 16 GB chip)
+    # 16.8M self-gravity + exact splat on ONE device: PM G=128 + the
+    # chunked-composite render (bounded memory at any N)
     "16m-pm": {
         "app": {"num_particles": 16_777_216, "gui": False, "vsync": False},
         "extra": {
@@ -52,10 +51,8 @@ PRESETS = {
     },
     # The reference's DEFAULT scene (N = 4,194,304, defines.h:44) with
     # EXACT-at-all-separations self-gravity: tree-P3M near field (the
-    # sub-block-expanded Pallas sweep — wide 2048-particle Morton blocks
-    # split to 512 for the VMEM kernel) + scene-probed auto grid. The
-    # exact O(N^2) sum at this N is a ~94 s dispatch; tree-P3M holds
-    # <0.1% RMS of it at seconds/step.
+    # XLA block-pair sweep over 2048-particle Morton blocks) + scene-probed
+    # auto grid. tree-P3M holds <0.1% RMS of the exact O(N^2) sum.
     "4m-tree": {
         "app": {"num_particles": 4_194_304, "gui": False, "vsync": False},
         "extra": {

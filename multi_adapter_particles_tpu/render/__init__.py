@@ -7,7 +7,7 @@ headless framebuffer computed on device:
 
 - `camera.py`    — SimpleCamera math (RH look-to view + perspective).
 - `reference.py` — exact sequential NumPy rasterizer (the golden oracle).
-- `renderer.py`  — TPU tile-binned splatter (exact ordered compositing via
+- `renderer.py`  — tile-binned splatter (exact ordered compositing via
   stable sort by tile; order-independent additive mode for speed).
 """
 

@@ -24,12 +24,12 @@ Deliberate deviation from D3D UNORM8 blending: instead of clamping (and
 quantizing) the running framebuffer after EVERY blend, the source term is
 clamped per sprite (src = clip(rgb * alpha, 0, 1)) and the final image is
 clipped once. This makes over-composition exactly associative — (color,
-transmittance) forms a monoid — which the TPU renderer exploits to
+transmittance) forms a monoid — which the renderer exploits to
 composite deep tiles in parallel segments. The two rules differ only
 when the unclamped running value would overshoot 1 (hot saturated cores,
 where both converge to white); neither reproduces UNORM8 quantization.
 
-O(N * sprite_area) per frame in Python/NumPy — use small N. The TPU
+O(N * sprite_area) per frame in Python/NumPy — use small N. The device
 renderer (`renderer.py`) is validated against this bit-for-intent.
 """
 

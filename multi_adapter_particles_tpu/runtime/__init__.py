@@ -1,7 +1,7 @@
 """Runtime layer: device roles, engines, orchestrator — the app core.
 
 The reference's L5/L4 layers (`Particles/Particles.cpp`, `Render.cpp`,
-`Compute.cpp`) re-designed for TPU: queues and fences become async XLA
+`Compute.cpp`) re-designed for JAX: queues and fences become async XLA
 dispatch plus data dependencies; the cross-adapter shared heap becomes a
 device-to-device `jax.device_put`; live adapter re-assignment becomes state
 migration between jax devices (or meshes).

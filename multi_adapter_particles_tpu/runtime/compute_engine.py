@@ -7,8 +7,8 @@ Here:
 - the "queue" is async XLA dispatch onto `self.device`,
 - the ping-pong pair is functional state + buffer donation
   (`Compute.cpp:52-62,1030-1035` descriptor-sliding done by XLA aliasing),
-- the "PSO" is the jitted step callable, chosen per force model and backend
-  (Pallas fused kernel on TPU, pure-XLA elsewhere),
+- the "PSO" is the jitted step callable, chosen per force model and, for
+  all-pairs, per device (`ops/dispatch.all_pairs_impl`),
 - the shared fence is a data dependency: `positions` handed to the render
   engine *is* the fence value (`Compute::GetFenceValue`, `Compute.cpp:446`),
 - `WaitForGpu` is a hard sync on the state,
@@ -20,7 +20,7 @@ Here:
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -29,7 +29,7 @@ from multi_adapter_particles_tpu.config import SimConfig
 from multi_adapter_particles_tpu.models import init as pinit
 from multi_adapter_particles_tpu.models import integrator
 from multi_adapter_particles_tpu.models.state import ParticleState
-from multi_adapter_particles_tpu.ops import allpairs, central_well
+from multi_adapter_particles_tpu.ops import dispatch
 from multi_adapter_particles_tpu.utils.metrics import MetricsRegistry
 from multi_adapter_particles_tpu.utils.timers import sync
 
@@ -48,17 +48,21 @@ class ComputeEngine:
         metrics: Optional[MetricsRegistry] = None,
         prev: Optional["ComputeEngine"] = None,
         seed: int = 0,
-        use_pallas: Optional[bool] = None,
+        all_pairs_impl: Optional[str] = None,
         donate: bool = True,
         extension=None,
     ):
         self.config = sim_config
         self.device = device
         self.metrics = metrics or MetricsRegistry()
-        if use_pallas is None:
-            use_pallas = device.platform == "tpu"
-        self.use_pallas = use_pallas
-        self._step = self._build_step(donate=donate)
+        if all_pairs_impl is None:
+            all_pairs_impl = dispatch.all_pairs_impl(device)
+        self.all_pairs_impl = all_pairs_impl
+        self._step = integrator.make_step(
+            sim_config,
+            accel_fn=integrator.make_accel_fn_for(sim_config, all_pairs_impl),
+            donate=donate,
+        )
         # Perf-extension layer (ExtensionHelper analog): when active, the
         # full-count step is recompiled with perf compiler options.
         self.extension = extension
@@ -75,38 +79,6 @@ class ComputeEngine:
                 self.state = pinit.initialize_particles_device(
                     sim_config.num_particles, seed=seed
                 )
-
-    # -- step construction ------------------------------------------------------
-    def _build_step(self, donate: bool) -> Callable:
-        cfg = self.config
-        if cfg.force_model == "central_well" and self.use_pallas:
-            # Fused Pallas integrator: one HBM pass for force + Euler.
-            def step(state: ParticleState, num_sim: Optional[int] = None):
-                pos, vel = central_well.central_well_step_pallas(
-                    state.position,
-                    state.velocity,
-                    dt=cfg.dt,
-                    damping=cfg.damping,
-                    mass=cfg.mass,
-                    softening_squared=cfg.softening_squared,
-                )
-                if num_sim is not None:
-                    return integrator._apply_num_sim_mask(pos, vel, state, num_sim)
-                return ParticleState(pos, vel)
-
-            if donate:
-                return jax.jit(step, static_argnums=(1,), donate_argnums=(0,))
-            return jax.jit(step, static_argnums=(1,))
-
-        accel_fn = None
-        if cfg.force_model == "all_pairs" and self.use_pallas:
-            accel_fn = allpairs.make_accel_fn(
-                mass=cfg.mass,
-                softening_squared=cfg.softening_squared,
-                interaction_scale=cfg.interaction_scale,
-                half=cfg.all_pairs_half,
-            )
-        return integrator.make_step(cfg, accel_fn=accel_fn, donate=donate)
 
     # -- frame ops ---------------------------------------------------------------
     def simulate(self, num_sim: Optional[int] = None) -> ParticleState:

@@ -4,7 +4,7 @@ Every widget of the reference's control panel (`Particles.cpp:339-394`)
 maps to a named control here: adapter list boxes (`:339-352`),
 extension/vsync/fullscreen checkboxes (`:370-372`), Size/Intensity sliders
 (`:373-374`), the Rendered/Copied/Simulated sliders with their link
-checkbox (`:379-394`), plus TPU-native extras (draw toggle, mesh size).
+checkbox (`:379-394`), plus extras beyond the reference (draw toggle, mesh size).
 Three transports drive the same registry:
 
 - terminal keys in `-interactive` (`apply_key`, the WindowProc path),

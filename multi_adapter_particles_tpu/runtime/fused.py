@@ -3,7 +3,7 @@
 The reference's single-adapter async-compute mode shares one device between
 the compute and direct queues with zero copies, interleaved by fences
 (`Compute::SetAsync`, `Compute.cpp:956-987`; `Render.cpp:844-852`). The
-TPU-idiomatic version goes further: the whole frame — render state N
+XLA version goes further: the whole frame — render state N
 (stale-by-one, the reference's contract) then integrate to N+1 — is one
 compiled XLA program with the state donated, so there are no per-stage
 dispatch gaps, no host round-trips, and XLA schedules/fuses across the
@@ -15,14 +15,14 @@ orchestrator can slot it into both roles. Per-stage timers work in fused
 mode too (the reference shows "simulate ms"/"render ms" in BOTH modes —
 `Compute.cpp:445-446`, `Render.cpp:151-152`, displayed
 `Particles.cpp:399-409`): with `stage_markers=True` the frame program
-threads the state through a `lax.optimization_barrier` that also consumes
-a scalar anchor over every render output. The barrier is an identity (the
-trajectory stays bitwise-equal) but (a) forces every sim-stage op to
-schedule after every render-stage op and (b) shows up in the XLA
-profiler's op stream as an `opt-barrier` event — so
+threads the state through two `lax.optimization_barrier`s, one before the
+render stage and one that also consumes a scalar anchor over every render
+output. Each carries a tiny sentinel-shaped broadcast whose kernel is
+recognizable in the profiler trace. The barriers are identities (the
+trajectory stays bitwise-equal) but order the stages, so
 `runtime/gputimer.parse_stage_ms` can split the ONE module's device time
-into render (ops before the barrier) and simulate (ops after) without
-breaking the single-program contract.
+into render (kernels between the markers) and simulate (kernels after
+the boundary) without breaking the single-program contract.
 
 The frame program keeps TWO state buffers and ping-pongs them explicitly —
 the descriptor-base-sliding analog (`Compute.cpp:52-62,1030-1035`): the
@@ -31,8 +31,7 @@ both read it freely, no copy and no hazard), while the PREVIOUS frame's
 state buffers are passed donated as scratch for the integrator's output.
 The caller swaps the two handles every frame. Round 1 donated the single
 current state instead, which forced XLA to copy it so the stale-by-one
-render could still read it — that copy made fused lose to split mode under
-dispatch-ahead pacing (543 vs 412 ms @4M).
+render could still read it — a full-state copy per frame.
 """
 
 from __future__ import annotations
@@ -46,7 +45,7 @@ from multi_adapter_particles_tpu.config import AppConfig, RenderConfig, SimConfi
 from multi_adapter_particles_tpu.models import init as pinit
 from multi_adapter_particles_tpu.models import integrator
 from multi_adapter_particles_tpu.models.state import ParticleState
-from multi_adapter_particles_tpu.ops import allpairs, central_well
+from multi_adapter_particles_tpu.ops import dispatch
 from multi_adapter_particles_tpu.render import renderer as rmod
 from multi_adapter_particles_tpu.render.camera import Camera
 from multi_adapter_particles_tpu.utils.metrics import MetricsRegistry
@@ -61,7 +60,7 @@ class FusedEngine:
         device: jax.Device,
         metrics: Optional[MetricsRegistry] = None,
         seed: int = 0,
-        use_pallas: Optional[bool] = None,
+        all_pairs_impl: Optional[str] = None,
         donate: bool = True,
         prev=None,
         stage_markers: bool = False,
@@ -72,9 +71,9 @@ class FusedEngine:
         self.metrics = metrics or MetricsRegistry()
         self.camera = Camera(position=render_config.camera_position)
         self.renderer = rmod.Renderer(render_config)  # param source + utils
-        if use_pallas is None:
-            use_pallas = device.platform == "tpu"
-        self.use_pallas = use_pallas
+        if all_pairs_impl is None:
+            all_pairs_impl = dispatch.all_pairs_impl(device)
+        self.all_pairs_impl = all_pairs_impl
         self.step_count = 0
         self.frame_count = 0
         self._frame = None
@@ -82,33 +81,12 @@ class FusedEngine:
         self._arg_key = None
         self._arg_dev = None
 
-        cfg = sim_config
-        if cfg.force_model == "central_well" and use_pallas:
-            def step_core(state, num_sim):
-                pos, vel = central_well.central_well_step_pallas(
-                    state.position, state.velocity,
-                    dt=cfg.dt, damping=cfg.damping, mass=cfg.mass,
-                    softening_squared=cfg.softening_squared,
-                )
-                if num_sim is not None:
-                    return integrator._apply_num_sim_mask(
-                        pos, vel, state, num_sim
-                    )
-                return ParticleState(pos, vel)
-        else:
-            accel_fn = None
-            if cfg.force_model == "all_pairs" and use_pallas:
-                accel_fn = allpairs.make_accel_fn(
-                    mass=cfg.mass,
-                    softening_squared=cfg.softening_squared,
-                    interaction_scale=cfg.interaction_scale,
-                    half=cfg.all_pairs_half,
-                )
-            inner = integrator.make_step(cfg, accel_fn=accel_fn, donate=False)
-            # unwrap: we re-jit the fused whole; calling the jitted inner
-            # inside jit simply inlines it
-            step_core = inner
-
+        # unjitted: the fused frame program inlines the step
+        step_core = integrator.make_step(
+            sim_config,
+            accel_fn=integrator.make_accel_fn_for(sim_config, all_pairs_impl),
+            donate=False,
+        )
         self._step_core = step_core
         self._donate = donate
         self.stage_markers = stage_markers
@@ -143,14 +121,27 @@ class FusedEngine:
             # donated so the integrator's output aliases them — the explicit
             # two-buffer ping-pong (`Compute.cpp:52-62,1030-1035`).
             del scratch  # storage donor only; contents are dead
+            begin = None
+            if self.stage_markers:
+                # Stage START marker for the fused per-stage timer: a tiny
+                # sentinel-shaped broadcast ([1, STAGE_BEGIN_COLS]) that
+                # reads the state, threaded with it through an
+                # optimization barrier, so every render kernel that reads
+                # positions runs after it (see the boundary marker below)
+                from multi_adapter_particles_tpu.runtime.gputimer import (
+                    STAGE_BEGIN_COLS,
+                )
+
+                begin = jnp.broadcast_to(
+                    state.position[0, 0] * 0.0 + radius, (1, STAGE_BEGIN_COLS)
+                )
+                state, begin = jax.lax.optimization_barrier((state, begin))
             # draw frame N (pre-step positions: the stale-by-one contract)...
             rend = self.renderer
             if state.padded_count > rend.chunk_threshold:
-                # the same id-ordered associative fold as split mode —
-                # k smaller sorts beat one big one (the single-pass 4M
-                # fused frame measured 147 ms vs split's 93 before this,
-                # 2026-08-19); the whole fold inlines into the one frame
-                # program (static chunk count)
+                # the same id-ordered associative fold as split mode;
+                # the whole fold inlines into the one frame program
+                # (static chunk count)
                 _, cn = rmod._chunk_width(
                     state.padded_count, rend.chunk_size
                 )
@@ -161,7 +152,7 @@ class FusedEngine:
                     width=rcfg.width, height=rcfg.height, seg_q=q,
                     dup_y=rend.dup_y, dup_x=rend.dup_x,
                     near=rcfg.near, blend=rend.blend,
-                    use_pallas_composite=rend.use_pallas_composite,
+                    composite=rend.composite,
                     chunk_size=rend.chunk_size,
                     frame_uint8=False,  # fused frames stay float,
                     #                     matching the _render call below
@@ -175,9 +166,7 @@ class FusedEngine:
                     seg_q=q,
                     dup_y=rend.dup_y, dup_x=rend.dup_x,
                     near=rcfg.near, blend=rend.blend,
-                    use_pallas_composite=(
-                        rend.use_pallas_composite and q % 8 == 0
-                    ),
+                    composite=rend.composite,
                 )
             # ...while/then integrating to N+1, all inside one program
             marker = None
@@ -188,12 +177,10 @@ class FusedEngine:
                 # the state through an optimization barrier. The barrier
                 # is bitwise inert (state passes through untouched) but
                 # (a) forces every sim op after every render op and
-                # (b) the sentinel shape is searchable in the profiler's
-                # op stream (`gputimer.parse_stage_ms` splits there; the
-                # opt-barrier op itself emits no trace event on TPU).
-                # Measured cost of (a): +0.63 ms on the 8.3 ms fused
-                # frame @262K/720p (experiments/fused_marker_ab.py) —
-                # the scheduling it forfeits is worth ~7%, the price of
+                # (b) its kernel is recognizable in the profiler's kernel
+                # stream (`gputimer.parse_stage_ms` splits there; the
+                # opt-barrier op itself need not emit a trace event).
+                # (a) forfeits some cross-stage scheduling: the price of
                 # the reference's both-modes timer parity.
                 from multi_adapter_particles_tpu.runtime.gputimer import (
                     STAGE_MARKER_COLS,
@@ -210,9 +197,9 @@ class FusedEngine:
                     (state, marker)
                 )
             new_state = step_core(state, num_sim)
-            # marker rides as an aux output so its producer can't be
+            # the markers ride as aux outputs so their producers can't be
             # dead-code-eliminated (None when markers are off)
-            return new_state, out, marker
+            return new_state, out, (begin, marker)
 
         return jax.jit(
             fused,

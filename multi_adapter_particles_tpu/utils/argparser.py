@@ -8,7 +8,7 @@ Same behavioral contract as the reference parser:
 
 Flag set registered by the app (`Particles.cpp:251-267`): numparticles,
 nogui, noext, size, intensity, novsync, fullscreen, numCopy, numDraw,
-numSim — all preserved, plus TPU-specific extensions.
+numSim — all preserved, plus extensions beyond the reference.
 """
 
 from __future__ import annotations

@@ -53,7 +53,7 @@ def render_ansi(app, clear: bool = True) -> str:
     lines = []
     if clear:
         lines.append(ANSI_HOME.rstrip("\n"))
-    lines.append("== multi-adapter particles (TPU) " + "=" * 30)
+    lines.append("== multi-adapter particles " + "=" * 30)
     lines.append(str(m.gauges.get("mode_banner", "")))
     lines.append("")
     lines.append("Adapters (compute C / render R):")
@@ -128,7 +128,7 @@ def write_html(app, path: str, frame=None) -> None:
     text = html.escape(render_ansi(app, clear=False))
     page = f"""<!doctype html><meta charset="utf-8">
 <meta http-equiv="refresh" content="2">
-<title>multi-adapter particles (TPU)</title>
+<title>multi-adapter particles</title>
 <body style="background:#000;color:#ddd;font-family:monospace">
 <pre>{text}</pre>{img_tag}</body>"""
     with open(path, "w") as f:
@@ -283,7 +283,7 @@ class DashboardServer:
         )
         text = html.escape(render_ansi(self.particles, clear=False))
         return f"""<!doctype html><meta charset="utf-8">
-<title>multi-adapter particles (TPU)</title>
+<title>multi-adapter particles</title>
 <body style="background:#000;color:#ddd;font-family:monospace">
 <div style="display:flex;gap:24px">
 <div><pre id=panel>{text}</pre>

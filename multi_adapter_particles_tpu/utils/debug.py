@@ -3,7 +3,7 @@
 The reference enables the D3D12 debug layer + DXGI debug factory in debug
 builds (`Particles.cpp:80-99`) to catch API misuse and resource hazards;
 the fence protocol's single-writer rules are its correctness argument
-(`Render.cpp:38-85`). The TPU analogs of those hazard classes:
+(`Render.cpp:38-85`). The JAX analogs of those hazard classes:
 
 - **NaN/Inf contamination** (the math blowing up silently) ->
   `jax.debug_nans` plus explicit per-frame finiteness asserts;

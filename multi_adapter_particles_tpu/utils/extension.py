@@ -7,10 +7,10 @@ so the iGPU isn't power-throttled while simulating
 silently falls back to a plain queue, and the app can toggle it at runtime
 (`Compute.cpp:148-157`).
 
-The TPU equivalent of "ask the platform for a faster queue" is asking XLA
-for a more aggressive compilation: `compile()` lowers a jitted function and
-compiles it with TPU perf compiler options (latency-hiding scheduler —
-overlaps DMA/ICI with compute, the closest analog of the throttle hint).
+The XLA equivalent of "ask the platform for a faster queue" is asking for
+a more aggressive compilation: `compile()` lowers a jitted function and
+compiles it with the GPU latency-hiding scheduler, which overlaps copies
+and collectives with compute — the closest analog of the throttle hint.
 Like the DLL probe, availability is discovered empirically: the first
 compile attempt with options decides, and failure falls back to the plain
 jit executable. Runtime-toggleable via `set_enabled`.
@@ -23,9 +23,10 @@ from typing import Callable, Optional
 import jax
 
 # The perf knobs requested when the extension is enabled. Unknown options
-# make compilation fail -> detected by the probe, never fatal.
+# make compilation fail -> detected by the probe, never fatal. The value
+# is a bool: this JAX rejects the string "true" for a bool option.
 PERF_COMPILER_OPTIONS = {
-    "xla_tpu_enable_latency_hiding_scheduler": "true",
+    "xla_gpu_enable_latency_hiding_scheduler": True,
 }
 
 

@@ -2,7 +2,7 @@
 
 The reference recomputes nothing at startup — its slot capacities are
 compile-time constants (`/root/reference/Particles/defines.h:44-60`).
-The tpu rebuild instead probes the ACTUAL initial scene host-side so
+This rebuild instead probes the ACTUAL initial scene host-side so
 tree-P3M budgets and the auto-selected mesh never silently truncate
 (app.py `-p3mnear` block) — but at 4M each `host_tree_counts` call is a
 ~15-25 s Morton sort + banded AABB count, and a `-p3mnear tree` launch
@@ -29,7 +29,7 @@ import tempfile
 from typing import Optional
 
 # bump when host_tree_counts / host_overflow_count semantics change
-_SCHEMA = 1
+_SCHEMA = 2
 
 
 def default_path() -> str:
@@ -42,8 +42,8 @@ def default_path() -> str:
 class ProbeCache:
     """One scene's probe results, load/saved from the JSON sidecar.
 
-    `counts` maps (gn, "r_c") -> (coarse, sub_or_None, block) — the
-    `host_tree_counts` triple; pass it straight to `auto_grid`'s
+    `counts` maps (gn, "r_c") -> (block_pairs, block) — the
+    `host_tree_counts` pair; pass it straight to `auto_grid`'s
     `counts_cache` and reuse it for the budget sizing. `overflow` maps
     (grid, capacity) -> int. Mutate, then `save()`.
     """
@@ -61,11 +61,7 @@ class ProbeCache:
                     self._file = json.load(f)
                 mine = self._file.get(self.key, {})
                 self.counts = {
-                    self._ckey_in(k): (
-                        int(v[0]),
-                        None if v[1] is None else int(v[1]),
-                        int(v[2]),
-                    )
+                    self._ckey_in(k): (int(v[0]), int(v[1]))
                     for k, v in mine.get("counts", {}).items()
                 }
                 self.overflow = {

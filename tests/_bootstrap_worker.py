@@ -44,7 +44,7 @@ mesh = make_mesh()  # global mesh over all processes' devices
 assert mesh.devices.size == 2 * nprocs
 
 cfg = SimConfig(num_particles=512, force_model="all_pairs")
-eng = MeshComputeEngine(cfg, mesh, seed=0, use_pallas=False)
+eng = MeshComputeEngine(cfg, mesh, seed=0)
 eng.simulate()
 eng.simulate()
 eng.wait_for_gpu()

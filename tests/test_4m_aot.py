@@ -2,13 +2,10 @@
 programs (VERDICT r4 #2: "write the multi-chip 4M story down and
 validate its program shape").
 
-BASELINE.json places the reference-default N = 4,194,304 on v5p-32;
-real multi-chip hardware is unavailable, so these tests pin that the
-4M-shape sharded programs LOWER AND COMPILE on the 8-device virtual
-mesh — compile-only: AOT lowering allocates no 4M buffers and nothing
-executes. The companion scaling model (ROADMAP "multi-chip 4M") prices
-the D at which the frame meets the 60 FPS budget from measured
-single-chip components.
+BASELINE.json places the reference-default N = 4,194,304 on several
+devices; these tests pin that the 4M-shape sharded programs LOWER AND
+COMPILE on the 8-device virtual mesh — compile-only: AOT lowering
+allocates no 4M buffers and nothing executes.
 """
 
 import jax
@@ -41,7 +38,7 @@ def test_4m_sharded_step_compiles(eight_devices):
     its shipped N) over 8 devices: lower + compile, no execution."""
     mesh = make_mesh(eight_devices)
     cfg = SimConfig(num_particles=N_4M, force_model="central_well")
-    step = make_sharded_step(cfg, mesh, donate=False, use_pallas=False)
+    step = make_sharded_step(cfg, mesh, donate=False)
     compiled = jax.jit(lambda s: step(s)).lower(
         _state_struct(N_4M, mesh)
     ).compile()
@@ -68,7 +65,7 @@ def test_4m_shardrender_compiles(eight_devices):
         pos, wvp, f32, f32, f32, f32, nd,
         mesh=mesh, width=1280, height=720, seg_q=256,
         dup_y=2, dup_x=2, near=1.0, blend="over",
-        use_pallas_composite=False,
+        composite="xla",
     )
     assert lowered.compile() is not None
 

@@ -68,24 +68,6 @@ def test_fused_and_force_flags(tmp_path):
     assert rc == 0
 
 
-def test_halfpair_default_and_rectpair_flag():
-    """Round 5: the Newton-3rd half-pair schedule is the single-chip
-    all_pairs default (A/B evidence in BASELINE.md); -rectpair restores
-    the rectangle kernel, -halfpair stays accepted."""
-    from multi_adapter_particles_tpu.app import build_parser
-    from multi_adapter_particles_tpu.config import AppConfig, SimConfig
-
-    assert SimConfig.all_pairs_half is True
-
-    for argv, expected in ([], True), (["-rectpair"], False), \
-            (["-halfpair"], True):
-        extra = {}
-        parser = build_parser(AppConfig(), extra)
-        assert parser.parse(argv) == []  # no unmatched tokens
-        assert extra.get("all_pairs_half", SimConfig.all_pairs_half) \
-            is expected
-
-
 def test_meshdevices_flag():
     import jax
 

@@ -347,49 +347,11 @@ class TestMeshPotential:
         ).use_run_accel
 
     def test_gauge_grid_table(self):
-        """The gauge sizes its own mesh above 262K (measured tree-P3M
-        optima: 192 @1M, 256 @4M); small N keeps the config's mesh."""
+        """The gauge sizes its own mesh above 262K (tree-P3M optima: 192
+        @1M, 256 @4M); small N keeps the config's mesh."""
         gg = diagnostics._gauge_grid
         assert gg(4096, 32) == 32
         assert gg(262_144, 64) == 64
         assert gg(1_048_576, 128) == 192
         assert gg(4_194_304, 128) == 256
         assert gg(4_194_304, 256) == 256
-
-
-class TestProbeSubBudget:
-    """Round 5: DiagnosticsProbe sizes the sub-block survivor budget
-    from the SAME host_tree_counts pass as the coarse budget, so
-    wide-block gauge sweeps stop paying split²-fold sentinel-padded
-    SMEM slices. Pinned at small N by shrinking the sweep width so the
-    probe's scene expands."""
-
-    def test_probe_caches_both_budgets_and_gauge_drops_nothing(
-        self, monkeypatch
-    ):
-        import jax.numpy as jnp
-
-        from multi_adapter_particles_tpu.models import diagnostics
-        from multi_adapter_particles_tpu.ops import treeforce
-        from multi_adapter_particles_tpu.utils.metrics import MetricsRegistry
-
-        monkeypatch.setattr(treeforce, "_SWEEP_MAX_BLOCK", 32)
-        n = 2048
-        cfg = SimConfig(num_particles=n, force_model="pm_grid",
-                        pm_grid_size=32)
-        rng = np.random.default_rng(3)
-        pos = np.zeros((4, n), np.float32)
-        pos[:3] = np.concatenate([
-            rng.normal(0, 120, (3, n // 2)),
-            rng.normal(300, 60, (3, n - n // 2)),
-        ], axis=1)
-        state = ParticleState(
-            position=jnp.asarray(pos),
-            velocity=jnp.zeros((3, n), jnp.float32),
-        )
-        probe = diagnostics.DiagnosticsProbe(cfg, 1, potential_mode="mesh")
-        m = MetricsRegistry()
-        assert probe.maybe_publish(0, state, m)
-        assert probe._probed_budget is not None
-        assert probe._probed_sub is not None and probe._probed_sub > 0
-        assert m.gauges["diag_dropped_pairs"] == 0.0

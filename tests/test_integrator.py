@@ -201,43 +201,46 @@ class TestInteractionScaleDefault:
 
 
 class TestRunAccelContract:
-    def test_make_accel_fn_for_matches_engine_kernel(self, monkeypatch):
-        """make_accel_fn_for's all_pairs branch must mirror
-        ComputeEngine's kernel selection (compute_engine.py:102-108) —
-        "the run's own accel" contract the diagnostics half-kick reuse
-        relies on. With Pallas available it honors all_pairs_half (the
-        round-5 halfpair default); rect and halfpair accumulation orders
-        are NOT bitwise comparable, so a mismatch is detectable."""
-        from multi_adapter_particles_tpu.models import init as pinit
-        from multi_adapter_particles_tpu.ops import allpairs, dispatch
+    def test_make_accel_fn_for_matches_engine_kernel(self):
+        for impl in ("xla", "triton-interpret"):
+            self._check_contract(impl)
 
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        n = 1024  # interpret-mode Pallas on CPU; halfpair tiles 512
+    def _check_contract(self, impl):
+        """make_accel_fn_for's all_pairs branch is the implementation the
+        engines run (ComputeEngine passes it the device's choice) — "the
+        run's own accel" contract the diagnostics half-kick reuse relies
+        on. Each named implementation is reproduced bitwise, and the two
+        agree to f32 accumulation-order tolerance."""
+        from multi_adapter_particles_tpu.models import init as pinit
+        from multi_adapter_particles_tpu.ops import allpairs
+        from multi_adapter_particles_tpu.runtime.compute_engine import (
+            ComputeEngine,
+        )
+
+        n = 1000  # padded to 1024: the parked tail rides along
         state = pinit.initialize_particles_device(n, seed=3)
-        for half in (True, False):
-            cfg = SimConfig(
-                num_particles=n, force_model="all_pairs",
-                all_pairs_half=half,
-            )
-            got = np.asarray(
-                integrator.make_accel_fn_for(cfg)(state.position)
-            )
-            want = np.asarray(
-                allpairs.make_accel_fn(
-                    mass=cfg.mass,
-                    softening_squared=cfg.softening_squared,
-                    interaction_scale=cfg.interaction_scale,
-                    half=half,
-                )(state.position)
-            )
-            np.testing.assert_array_equal(got, want)
-        # and the two kernels really do differ in bits (the contract is
-        # about which one runs)
-        accels = {
-            half: np.asarray(integrator.make_accel_fn_for(SimConfig(
-                num_particles=n, force_model="all_pairs",
-                all_pairs_half=half,
-            ))(state.position))
-            for half in (True, False)
-        }
-        assert not np.array_equal(accels[True], accels[False])
+        cfg = SimConfig(num_particles=n, force_model="all_pairs")
+        got = np.asarray(
+            integrator.make_accel_fn_for(cfg, impl)(state.position)
+        )
+        if impl == "xla":
+            m = (np.arange(state.padded_count) < n).astype(np.float32)
+            want = np.asarray(integrator.all_pairs_accel(
+                state.position, mass=cfg.mass,
+                softening_squared=cfg.softening_squared,
+                interaction_scale=cfg.interaction_scale, mask=m,
+            ))
+        else:
+            want = np.asarray(allpairs.make_accel_fn(
+                mass=cfg.mass, softening_squared=cfg.softening_squared,
+                interaction_scale=cfg.interaction_scale, interpret=True,
+            )(state.position))
+        np.testing.assert_array_equal(got, want)
+        xla = np.asarray(
+            integrator.make_accel_fn_for(cfg, "xla")(state.position)
+        )
+        scale = np.abs(xla[:, :n]).max()
+        assert np.abs(got[:, :n] - xla[:, :n]).max() < 1e-5 * scale
+        eng = ComputeEngine(cfg, jax.devices()[0], seed=3,
+                            all_pairs_impl=impl, donate=False)
+        assert eng.all_pairs_impl == impl

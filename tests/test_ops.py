@@ -1,16 +1,22 @@
-"""Pallas kernel tests (run through the interpreter on the CPU test mesh;
-the same code compiles natively on TPU — exercised by bench/verify runs)."""
+"""Force kernels on the CPU: the central-well step against the oracle, and
+the Triton all-pairs kernel through the Pallas interpreter against the
+XLA formulation (the kernel itself compiles only for a GPU; chip_smoke.py
+checks it there)."""
 
 import numpy as np
 import pytest
 
 import jax
+import jax.numpy as jnp
 
 from multi_adapter_particles_tpu import constants as C
+from multi_adapter_particles_tpu.config import SimConfig
 from multi_adapter_particles_tpu.models import integrator, oracle
-from multi_adapter_particles_tpu.models.state import ParticleState
-from multi_adapter_particles_tpu.ops.allpairs import all_pairs_accel_pallas
-from multi_adapter_particles_tpu.ops.central_well import central_well_step_pallas
+from multi_adapter_particles_tpu.models.state import PAD_POSITION, ParticleState
+from multi_adapter_particles_tpu.ops.allpairs import (
+    all_pairs_accel_triton,
+    make_accel_fn,
+)
 
 
 def state_from_oracle(n, seed=0):
@@ -18,51 +24,64 @@ def state_from_oracle(n, seed=0):
     return ParticleState.from_aos(pos, vel), pos, vel
 
 
+def triton(position, **kw):
+    kw.setdefault("mass", C.PARTICLE_MASS)
+    kw.setdefault("softening_squared", C.SOFTENING_SQUARED)
+    return np.asarray(all_pairs_accel_triton(position, interpret=True, **kw))
+
+
 class TestCentralWellKernel:
+    """The central well is plain XLA on every backend: one fused step."""
+
     def test_matches_oracle(self):
-        n = 256
+        self._check_oracle(256)
+
+    def test_matches_oracle_unaligned(self):
+        self._check_oracle(200)  # padded to 256 with parked particles
+
+    def _check_oracle(self, n):
         st, pos, vel = state_from_oracle(n)
-        npos, nvel = central_well_step_pallas(
-            st.position, st.velocity,
-            C.TIMESTEP, C.DAMPING, C.PARTICLE_MASS, C.SOFTENING_SQUARED,
-        )
+        step = integrator.make_step(SimConfig(num_particles=n), donate=False)
+        out = step(st)
         opos, ovel = oracle.central_well_step(pos, vel)
-        np.testing.assert_allclose(
-            np.asarray(npos)[:, :n].T, opos, rtol=2e-5, atol=2e-5
-        )
-        np.testing.assert_allclose(
-            np.asarray(nvel)[:, :n].T, ovel, rtol=2e-5, atol=2e-5
-        )
+        npos, nvel = out.to_aos(n)
+        np.testing.assert_allclose(npos, opos, rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(nvel, ovel, rtol=2e-5, atol=2e-5)
 
     def test_multi_tile_grid(self):
+        """Several steps in a row stay on the oracle trajectory."""
         n = 512
         st, pos, vel = state_from_oracle(n, seed=3)
-        npos, _ = central_well_step_pallas(
-            st.position, st.velocity,
-            C.TIMESTEP, C.DAMPING, C.PARTICLE_MASS, C.SOFTENING_SQUARED,
-            tile=128,  # force a 4-step grid
-        )
-        opos, _ = oracle.central_well_step(pos, vel)
-        np.testing.assert_allclose(
-            np.asarray(npos)[:, :n].T, opos, rtol=2e-5, atol=2e-5
-        )
+        step = integrator.make_step(SimConfig(num_particles=n), donate=False)
+        for _ in range(4):
+            st = step(st)
+            pos, vel = oracle.central_well_step(pos, vel)
+        np.testing.assert_allclose(st.to_aos(n)[0], pos, rtol=1e-4,
+                                   atol=1e-4)
 
 
 class TestAllPairsKernel:
     def test_matches_xla_blocked(self):
-        n = 256
+        self._check_xla(256, 64, 32)
+
+    @pytest.mark.parametrize("n,block_i,block_j", [
+        (100, 64, 32),     # neither side a block multiple
+        (300, 128, 64),
+        (130, 32, 128),    # one source block wider than all of n
+    ])
+    def test_matches_xla_blocked_shapes(self, n, block_i, block_j):
+        self._check_xla(n, block_i, block_j)
+
+    def _check_xla(self, n, block_i, block_j):
         st, _, _ = state_from_oracle(n, seed=1)
-        acc_p = np.asarray(
-            all_pairs_accel_pallas(
-                st.position, C.PARTICLE_MASS, C.SOFTENING_SQUARED,
-                ti=128, tj=128,
-            )
-        )
+        pos = st.position[:, :n]
+        acc_p = triton(pos, block_i=block_i, block_j=block_j)
         acc_x = np.asarray(
             integrator.all_pairs_accel(
-                st.position, C.PARTICLE_MASS, C.SOFTENING_SQUARED, j_tile=128
+                pos, C.PARTICLE_MASS, C.SOFTENING_SQUARED
             )
         )
+        assert acc_p.shape == (4, n)
         scale = np.abs(acc_x).max()
         assert np.abs(acc_p[:3] - acc_x).max() < 1e-5 * max(scale, 1.0)
         # |a| channel
@@ -73,13 +92,9 @@ class TestAllPairsKernel:
     def test_matches_oracle_step(self):
         n = 128
         st, pos, vel = state_from_oracle(n, seed=2)
-        from multi_adapter_particles_tpu.ops.allpairs import make_accel_fn
-
         accel_fn = make_accel_fn(
-            C.PARTICLE_MASS, C.SOFTENING_SQUARED, ti=128, tj=128
+            C.PARTICLE_MASS, C.SOFTENING_SQUARED, interpret=True
         )
-        from multi_adapter_particles_tpu.config import SimConfig
-
         step = integrator.make_step(
             SimConfig(num_particles=n, force_model="all_pairs",
                       interaction_scale=1.0),  # accel_fn is unscaled
@@ -94,128 +109,54 @@ class TestAllPairsKernel:
     def test_interaction_scale(self):
         n = 128
         st, _, _ = state_from_oracle(n, seed=4)
-        a1 = np.asarray(
-            all_pairs_accel_pallas(
-                st.position, C.PARTICLE_MASS, C.SOFTENING_SQUARED,
-                interaction_scale=1.0, ti=128, tj=128,
-            )
-        )
-        a2 = np.asarray(
-            all_pairs_accel_pallas(
-                st.position, C.PARTICLE_MASS, C.SOFTENING_SQUARED,
-                interaction_scale=2.0, ti=128, tj=128,
-            )
-        )
+        a1 = triton(st.position, interaction_scale=1.0)
+        a2 = triton(st.position, interaction_scale=2.0)
         np.testing.assert_allclose(a2[:3], a1[:3] * 2.0, rtol=1e-5)
+
+    def test_parked_padding_needs_no_mask(self):
+        """A padded state (100 live of 128, the tail parked at 1e9): the
+        kernel's unmasked sum equals the XLA path's masked one on every
+        live particle, and parked targets stay finite."""
+        n = 100
+        st, _, _ = state_from_oracle(n, seed=5)
+        assert st.padded_count == 128
+        assert np.all(np.asarray(st.position)[:3, n:] == PAD_POSITION)
+        mask = (jnp.arange(128) < n).astype(jnp.float32)
+        acc_x = np.asarray(integrator.all_pairs_accel(
+            st.position, C.PARTICLE_MASS, C.SOFTENING_SQUARED, mask=mask,
+        ))
+        acc_p = triton(st.position)
+        assert np.isfinite(acc_p).all()
+        scale = np.abs(acc_x[:, :n]).max()
+        assert np.abs(acc_p[:3, :n] - acc_x[:, :n]).max() < 1e-5 * scale
+
+    def test_split_sources(self):
+        """The sharded schedules' split form: targets against a separate
+        source set of a different width."""
+        rng = np.random.default_rng(9)
+        tgt = jnp.asarray(rng.uniform(-300, 300, (4, 96)).astype(np.float32))
+        src = jnp.asarray(rng.uniform(-300, 300, (4, 200)).astype(np.float32))
+        acc_p = triton(tgt, sources=src)
+        acc_x = np.asarray(integrator.all_pairs_accel(
+            tgt, C.PARTICLE_MASS, C.SOFTENING_SQUARED, sources=src,
+        ))
+        assert acc_p.shape == (4, 96)
+        np.testing.assert_allclose(acc_p[:3], acc_x, rtol=1e-5,
+                                   atol=1e-5 * np.abs(acc_x).max())
 
 
 class TestOddTileCount:
     def test_allpairs_odd_j_tiles(self):
-        """The unrolled kernel's un-overlapped tail path (odd tile counts)."""
-        import jax
-        import jax.numpy as jnp
-
-        from multi_adapter_particles_tpu.models import integrator
-        from multi_adapter_particles_tpu.ops import allpairs
-
-        n = 768  # tj=256 -> 3 j-tiles (odd)
+        """An odd number of source blocks (768 / 256 = 3)."""
+        n = 768
         pos = jax.random.uniform(
             jax.random.PRNGKey(3), (4, n), jnp.float32, -400.0, 400.0
         ).at[3].set(0.0)
-        a = allpairs.all_pairs_accel_pallas(
-            pos, mass=70000.0, softening_squared=25.0, ti=256, tj=256
-        )
+        a = triton(pos, mass=70000.0, softening_squared=25.0,
+                   block_i=256, block_j=256)
         b = integrator.all_pairs_accel(
             pos, mass=70000.0, softening_squared=25.0
         )
         np.testing.assert_allclose(
             np.asarray(a)[:3], np.asarray(b), rtol=1e-4, atol=1e-2
         )
-
-
-class TestHalfPairKernel:
-    """Newton-3rd half-pair schedule (`all_pairs_accel_halfpair`) — the
-    opt-in +12%-@1M kernel landed in round 4 (BASELINE.md axis close)."""
-
-    def _pos(self, n, seed=0):
-        import jax.numpy as jnp
-
-        key = jax.random.PRNGKey(seed)
-        p = jax.random.uniform(key, (4, n), jnp.float32, -400.0, 400.0)
-        return p.at[3].set(0.0)
-
-    def test_matches_rectangle_kernel(self):
-        from multi_adapter_particles_tpu.ops.allpairs import (
-            all_pairs_accel_halfpair,
-        )
-
-        n = 2048
-        pos = self._pos(n)
-        a0 = np.asarray(all_pairs_accel_pallas(
-            pos, mass=C.PARTICLE_MASS,
-            softening_squared=C.SOFTENING_SQUARED))
-        ah = np.asarray(all_pairs_accel_halfpair(
-            pos, mass=C.PARTICLE_MASS,
-            softening_squared=C.SOFTENING_SQUARED, t=512, kb=2))
-        scale = np.abs(a0[:3]).max()
-        assert np.abs(ah[:3] - a0[:3]).max() / scale < 5e-6
-        # |a| channel filled too (the color magnitude)
-        np.testing.assert_allclose(
-            ah[3], np.sqrt((ah[:3] ** 2).sum(0)), rtol=1e-6)
-
-    def test_multi_band_matches_single_band(self):
-        from multi_adapter_particles_tpu.ops.allpairs import (
-            all_pairs_accel_halfpair,
-        )
-
-        n = 4096  # 8 tiles of 512
-        pos = self._pos(n, seed=3)
-        a1 = np.asarray(all_pairs_accel_halfpair(
-            pos, mass=C.PARTICLE_MASS,
-            softening_squared=C.SOFTENING_SQUARED, t=512, kb=8))
-        a2 = np.asarray(all_pairs_accel_halfpair(
-            pos, mass=C.PARTICLE_MASS,
-            softening_squared=C.SOFTENING_SQUARED, t=512, kb=2))
-        scale = np.abs(a1[:3]).max()
-        assert np.abs(a2[:3] - a1[:3]).max() / scale < 5e-6
-
-    def test_untileable_n_falls_back_to_rectangle(self):
-        from multi_adapter_particles_tpu.ops.allpairs import (
-            all_pairs_accel_halfpair,
-        )
-
-        n = 640  # not a multiple of 512
-        pos = self._pos(n, seed=5)
-        a0 = np.asarray(all_pairs_accel_pallas(
-            pos, mass=C.PARTICLE_MASS,
-            softening_squared=C.SOFTENING_SQUARED))
-        ah = np.asarray(all_pairs_accel_halfpair(
-            pos, mass=C.PARTICLE_MASS,
-            softening_squared=C.SOFTENING_SQUARED))
-        np.testing.assert_array_equal(ah, a0)  # same kernel, bitwise
-
-    def test_engine_flag_wires_through(self):
-        """SimConfig(all_pairs_half=True) steps finitely and tracks the
-        rectangle-kernel trajectory to fp tolerance."""
-        from multi_adapter_particles_tpu.config import SimConfig
-        from multi_adapter_particles_tpu.models import init as pinit
-        from multi_adapter_particles_tpu.ops import dispatch
-        from multi_adapter_particles_tpu.runtime.compute_engine import (
-            ComputeEngine,
-        )
-
-        n = 1024
-        dev = jax.devices()[0]
-        states = {}
-        for half in (False, True):
-            cfg = SimConfig(num_particles=n, force_model="all_pairs",
-                            all_pairs_half=half)
-            eng = ComputeEngine(cfg, dev, seed=7, use_pallas=True)
-            for _ in range(3):
-                eng.simulate()
-            eng.wait_for_gpu()
-            states[half] = np.asarray(eng.state.position)
-        assert np.isfinite(states[True]).all()
-        scale = np.abs(states[False][:3]).max()
-        assert np.abs(states[True][:3] - states[False][:3]).max() / scale \
-            < 1e-5

@@ -289,47 +289,6 @@ class TestIntegration:
         assert np.isfinite(pos[:, :512]).all()
         assert pos[3, :512].max() > 0
 
-
-@pytest.mark.slow
-class TestTreeThroughP3M:
-    def test_expanded_sweep_inside_jitted_p3m(self, monkeypatch):
-        """Sub-block expansion running inside the full jitted
-        p3m_accel_with_overflow tree path (not just a direct
-        near_field_tree call): forces match the unexpanded trace and
-        nothing is dropped. A distinctive sub_pair_budget value keys a
-        fresh jit trace so the monkeypatched sweep width takes effect."""
-        from multi_adapter_particles_tpu.ops import dispatch, p3m, treeforce
-
-        rng = np.random.default_rng(29)
-        n = 2048
-        pos = np.zeros((4, n), np.float32)
-        pos[:3] = np.concatenate(
-            [
-                rng.normal(0, 60, (n // 2, 3)),
-                rng.normal(300, 60, (n // 2, 3)),
-            ]
-        ).astype(np.float32).T
-        import jax.numpy as jnp
-
-        posd = jnp.asarray(pos)
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        a_ref, d_ref = p3m.p3m_accel_with_overflow(
-            posd, grid=32, box=4096.0, g_const=70000.0, near_mode="tree",
-        )
-        monkeypatch.setattr(treeforce, "_SWEEP_MAX_BLOCK", 32)
-        r_c = 6.75 * 4096.0 / 32
-        gn = max(int(4096.0 // r_c), 1)
-        sub = treeforce.host_block_pairs(pos, 4096.0, r_c, gn, block=32)[0]
-        a_exp, d_exp = p3m.p3m_accel_with_overflow(
-            posd, grid=32, box=4096.0, g_const=70000.0, near_mode="tree",
-            sub_pair_budget=sub + 2,
-        )
-        assert int(d_ref) == int(d_exp) == 0
-        np.testing.assert_allclose(
-            np.asarray(a_exp), np.asarray(a_ref), rtol=2e-4, atol=1e-2
-        )
-
-
 @pytest.mark.slow
 class TestShardedTreeP3M:
     """Tree near field on the mesh: target blocks partition round-robin
@@ -426,14 +385,3 @@ class TestPotentialTotal:
                 pos, 2048.0, 70000.0, 25.0, 216.0, 9,
                 with_potential=True, total_only=True,
             )
-
-    def test_total_pallas_interpret_matches_xla(self, monkeypatch):
-        from multi_adapter_particles_tpu.ops import dispatch
-
-        pos = aos(self._clustered(seed=31))
-        kw = dict(grid=16, box=2048.0, g_const=70000.0,
-                  softening_squared=25.0)
-        t_xla, _ = p3m.p3m_potential_total_with_overflow(pos, **kw)
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        t_pl, _ = p3m.p3m_potential_total_with_overflow(pos, **kw)
-        assert float(t_pl) == pytest.approx(float(t_xla), rel=2e-6)

@@ -1,6 +1,6 @@
 """Multi-chip sharding tests on the 8-device virtual CPU mesh.
 
-The TPU analog of a fake backend (SURVEY §4): correctness of the ring
+The analog of a fake backend (SURVEY §4): correctness of the ring
 all-pairs exchange, sharded central-well, elastic re-sharding, and the
 mesh engine — all without real multi-chip hardware.
 """
@@ -415,9 +415,7 @@ class TestBootstrap:
     def test_noop_on_single_host(self, monkeypatch):
         from multi_adapter_particles_tpu.parallel import bootstrap
 
-        for var in ("JAX_COORDINATOR_ADDRESS", "MEGASCALE_COORDINATOR_ADDRESS",
-                    "TPU_WORKER_ID"):
-            monkeypatch.delenv(var, raising=False)
+        monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
         assert bootstrap.initialize() is False
         assert bootstrap.is_primary()
         assert bootstrap.local_render_device() in jax.devices()

@@ -78,8 +78,7 @@ class TestPackedCornerRows:
     @pytest.mark.parametrize("g", [8, 16])
     def test_matches_naive_rows_bitwise(self, g):
         """_pack_corner_rows builds [G³/4, 128] lines bitwise equal to
-        the naive concatenate-the-corners [G³, 32] rows reshaped — the
-        layout the (measured-OOM at G=384) relayout copy used to make."""
+        the naive concatenate-the-corners [G³, 32] rows reshaped."""
         rng = np.random.default_rng(g)
         ax, ay, az = (
             jnp.asarray(rng.normal(size=(g, g, g)).astype(np.float32))

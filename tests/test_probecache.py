@@ -36,40 +36,40 @@ class TestSidecar:
         p = str(tmp_path / "probes.json")
         c = open_cache(p, 4096, 0, 2048.0, 6.75)
         ck = counts_cache_key(9, 216.0)
-        c.counts[ck] = (123, None, 512)
-        c.counts[counts_cache_key(15, 108.5)] = (44, 99, 4096)
+        c.counts[ck] = (123, 512)
+        c.counts[counts_cache_key(15, 108.5)] = (44, 4096)
         c.overflow[(128, 8)] = 7
         c.save()
 
         c2 = open_cache(p, 4096, 0, 2048.0, 6.75)
-        assert c2.counts[ck] == (123, None, 512)
-        assert c2.counts[counts_cache_key(15, 108.5)] == (44, 99, 4096)
+        assert c2.counts[ck] == (123, 512)
+        assert c2.counts[counts_cache_key(15, 108.5)] == (44, 4096)
         assert c2.overflow[(128, 8)] == 7
 
     def test_scene_keys_isolate(self, tmp_path):
         p = str(tmp_path / "probes.json")
         c = open_cache(p, 4096, 0, 2048.0, 6.75)
-        c.counts[counts_cache_key(9, 216.0)] = (1, None, 512)
+        c.counts[counts_cache_key(9, 216.0)] = (1, 512)
         c.save()
         # different seed -> different scene -> empty view, same file
         c2 = open_cache(p, 4096, 1, 2048.0, 6.75)
         assert not c2.counts
-        c2.counts[counts_cache_key(9, 216.0)] = (2, None, 512)
+        c2.counts[counts_cache_key(9, 216.0)] = (2, 512)
         c2.save()
         # both survive
         assert open_cache(p, 4096, 0, 2048.0, 6.75).counts[
             counts_cache_key(9, 216.0)
-        ] == (1, None, 512)
+        ] == (1, 512)
         assert open_cache(p, 4096, 1, 2048.0, 6.75).counts[
             counts_cache_key(9, 216.0)
-        ] == (2, None, 512)
+        ] == (2, 512)
 
     def test_corrupt_file_degrades_to_empty(self, tmp_path):
         p = tmp_path / "probes.json"
         p.write_text("{ not json !!")
         c = open_cache(str(p), 4096, 0, 2048.0, 6.75)
         assert c.counts == {} and c.overflow == {}
-        c.counts[counts_cache_key(9, 216.0)] = (5, None, 512)
+        c.counts[counts_cache_key(9, 216.0)] = (5, 512)
         c.save()  # and saving over the corpse works
         assert json.loads(p.read_text())
 
@@ -77,7 +77,7 @@ class TestSidecar:
         monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path))
         c = open_cache("off", 4096, 0, 2048.0, 6.75)
         assert c.path is None
-        c.counts[counts_cache_key(9, 216.0)] = (5, None, 512)
+        c.counts[counts_cache_key(9, 216.0)] = (5, 512)
         c.save()  # no-op
         assert not list(tmp_path.rglob("*.json"))
 

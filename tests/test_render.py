@@ -1,5 +1,5 @@
 """Renderer tests: camera math, color rules, and golden comparison of the
-TPU tile-binned splatter against the exact sequential NumPy rasterizer
+Tile-binned splatter against the exact sequential NumPy rasterizer
 (survey SS4: 'golden-image/golden-histogram tests for the splat renderer')."""
 
 import numpy as np
@@ -396,48 +396,71 @@ class TestSegQInvariance:
 
 
 class TestPallasComposite:
+    """ops/composite.py through the Pallas interpreter on the CPU."""
+
     def test_row_hi_trip_count_bitwise(self):
-        """The dynamic per-block trip count (row_hi scalar prefetch) is
+        for blend in ("over", "additive"):
+            self._check_trip_count(blend, 1100)
+
+    @pytest.mark.parametrize("blend", ["over", "additive"])
+    @pytest.mark.parametrize("v", [16, 7])
+    def test_row_hi_trip_count_bitwise_small_v(self, blend, v):
+        self._check_trip_count(blend, v)
+
+    def _check_trip_count(self, blend, v):
+        """Looping each block only to its rows' largest live bound is
         BITWISE equal to the full Q loop: slots at or past a row's hi
         carry alpha-scale 0 and zero-alpha blending is an exact identity
         (x*1 == x, +0 + 0 == +0). Random live windows, a dead row tail,
-        and a V that is not a multiple of the block width."""
+        and V values that are not multiples of the block width."""
         import jax.numpy as jnp
 
         from multi_adapter_particles_tpu.ops.composite import (
-            composite_rows_pallas,
+            composite_rows_triton,
         )
 
-        rng = np.random.default_rng(0)
-        q, v = 32, 1100
+        rng = np.random.default_rng(v)
+        q = 32
         sp = rng.uniform(-3, 3, size=(8, q, v)).astype(np.float32)
         hi = rng.integers(0, q + 1, size=v).astype(np.int32)
-        hi[900:] = 0  # dead tail -> whole trailing blocks skip (ng == 0)
+        hi[(9 * v) // 11:] = 0  # dead tail -> trailing blocks loop 0 times
         kk = np.arange(q)[:, None]
         sp[7] = np.where(kk < hi[None, :], np.abs(sp[7]), 0.0)
         bases = rng.uniform(0, 64, size=(2, v)).astype(np.float32)
         sp_j, bases_j, hi_j = map(jnp.asarray, (sp, bases, hi))
-        for blend in ("over", "additive"):
-            full = composite_rows_pallas(sp_j, bases_j, 8, 16, blend=blend)
-            trip = composite_rows_pallas(
-                sp_j, bases_j, 8, 16, blend=blend, row_hi=hi_j
-            )
-            a, b = np.asarray(full), np.asarray(trip)
-            assert a.shape == b.shape == (4, 128, v)
-            np.testing.assert_array_equal(a, b)
+        full = composite_rows_triton(
+            sp_j, bases_j, jnp.full((v,), q, jnp.int32), 8, 16, blend=blend,
+            interpret=True,
+        )
+        trip = composite_rows_triton(
+            sp_j, bases_j, hi_j, 8, 16, blend=blend, interpret=True
+        )
+        a, b = np.asarray(full), np.asarray(trip)
+        assert a.shape == b.shape == (4, v, 128)
+        np.testing.assert_array_equal(a, b)
 
     def test_kernel_matches_xla_scan(self):
-        """composite_rows_pallas (interpret mode on CPU) == the XLA scan
-        path, on a tiny scene."""
+        self._check_scan(64, 8, "over")
+
+    @pytest.mark.parametrize("n,seg_q,blend", [
+        (100, 12, "over"),
+        (64, 8, "additive"),
+    ])
+    def test_kernel_matches_xla_scan_variants(self, n, seg_q, blend):
+        self._check_scan(n, seg_q, blend)
+
+    def _check_scan(self, n, seg_q, blend):
+        """The Triton composite (interpreted) == the XLA scan path on a
+        tiny scene, including a Q that is not a power of two and a
+        padded particle tail parked at 1e9."""
         import jax.numpy as jnp
 
-        from multi_adapter_particles_tpu.render.renderer import Renderer, _render
+        from multi_adapter_particles_tpu.render.renderer import _render
 
-        n = 64
-        rng = np.random.default_rng(3)
+        rng = np.random.default_rng(3 + n)
         pos = np.zeros((4, 128), np.float32)
         pos[:3, :n] = rng.uniform(-50, 50, size=(3, n)).astype(np.float32)
-        pos[0, n:] = 1e9
+        pos[:3, n:] = 1e9
         cfg = RenderConfig(width=64, height=16)
         camera = cam.Camera()
         proj = camera.projection_matrix(cfg.aspect)
@@ -445,12 +468,12 @@ class TestPallasComposite:
         args = (
             jnp.asarray(pos), wvp,
             jnp.float32(abs(proj[0, 0])), jnp.float32(abs(proj[1, 1])),
-            jnp.float32(100.0), jnp.float32(0.4), jnp.int32(128),
+            jnp.float32(100.0), jnp.float32(0.4), jnp.int32(n),
         )
-        kw = dict(width=cfg.width, height=cfg.height, seg_q=8,
-                  dup_y=2, dup_x=2, near=cfg.near, blend="over")
-        a = _render(*args, use_pallas_composite=False, **kw)
-        b = _render(*args, use_pallas_composite=True, **kw)
+        kw = dict(width=cfg.width, height=cfg.height, seg_q=seg_q,
+                  dup_y=2, dup_x=2, near=cfg.near, blend=blend)
+        a = _render(*args, composite="xla", **kw)
+        b = _render(*args, composite="triton-interpret", **kw)
         np.testing.assert_allclose(
             np.asarray(a.frame), np.asarray(b.frame), rtol=1e-5, atol=1e-6
         )

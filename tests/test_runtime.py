@@ -333,7 +333,7 @@ class TestFusedMode:
         app = AppConfig(num_particles=1, particle_size=200.0)
         eng = FusedEngine(
             SimConfig(num_particles=1), RenderConfig(width=256, height=256),
-            jax.devices()[0], use_pallas=False,
+            jax.devices()[0],
         )
         pos = np.array([[0.0, 0.0, 0.0, 0.0]], dtype=np.float32)
         eng.restore(ParticleState.from_aos(pos, np.zeros((1, 3), np.float32)))
@@ -597,11 +597,3 @@ class TestReviewRegressions:
         assert "Mesh" not in app.metrics.gauges["mode_banner"]
         app.draw()
         app.shutdown()
-
-    def test_pick_tile_rejects_unalignable(self):
-        from multi_adapter_particles_tpu.ops.dispatch import pick_tile
-
-        assert pick_tile(1024, 2048, 128) == 1024
-        assert pick_tile(2048, 512, 128) == 512
-        with pytest.raises(ValueError, match="alignment"):
-            pick_tile(64, 512, 128)

@@ -217,10 +217,9 @@ class TestChebFactor:
 
 @pytest.mark.slow
 class TestAutoGrid:
-    """auto_grid must reproduce the MEASURED grid optima on the demo
-    init (on-chip sweeps, ROADMAP): G=128 at 262K, G=192 at 1M. These
-    pin the calibrated cost model against ground truth — if the model
-    constants drift, these fail before a user pays a 2x step time."""
+    """auto_grid must reproduce the grid optima its cost model was fitted
+    to on the demo init: G=128 at 262K, G=192 at 1M. These pin the cost
+    model — if its constants drift, these fail."""
 
     @pytest.mark.parametrize("n,expected", [(262_144, 128), (1_048_576, 192)])
     def test_matches_measured_optimum(self, n, expected):
@@ -247,12 +246,11 @@ class TestAutoGrid:
         assert g_uni <= g_demo
 
     def test_hbm_feasibility_excludes_oversized_grids(self):
-        """G=384's long-range FFT working set peaks at 19.21 GiB of HLO
-        temps on the 16 GiB chip (measured AOT compile failure @4M with
-        the lane-packed rows, 2026-08-19 08:19 sweep — the doubled-grid
-        rfft intermediates, ~10 live (2G)^3 buffers). The feasibility
-        roof must exclude 384/512 from every candidate set so auto_grid
-        never hands the device an uncompilable mesh."""
+        """G=384's long-range FFT working set (~10 live (2G)^3 buffers of
+        the doubled-grid rfft, ~19 GiB) does not fit 7/8 of the CPU
+        backend's stated 16 GiB. The feasibility roof must exclude
+        384/512 from every candidate set so auto_grid never hands the
+        device a mesh it cannot hold."""
         from multi_adapter_particles_tpu.ops.treeforce import (
             AUTO_GRID_LADDER,
             auto_grid,
@@ -284,237 +282,6 @@ class TestAutoGrid:
         count, block = host_block_pairs(pos, 2048.0, 216.0, 9)
         assert count > 0 and block >= 128
         assert host_pair_budget(pos, 2048.0, 216.0, 9) == int(count * 1.25) + 1
-
-
-@pytest.mark.slow
-class TestPallasSweep:
-    def test_kernel_matches_xla_sweep(self, monkeypatch):
-        """The VMEM sweep kernel (interpret mode on CPU) == the XLA
-        chunked sweep, on a clustered scene with a real pair list."""
-        from multi_adapter_particles_tpu.ops import dispatch
-
-        rng = np.random.default_rng(5)
-        n = 1024
-        pos3 = np.concatenate(
-            [
-                rng.normal(0, 60, (n // 2, 3)),
-                rng.normal(300, 60, (n // 2, 3)),
-            ]
-        ).astype(np.float32)
-        pos = aos(pos3)
-        box, r_c = 2048.0, 216.0
-        gn = int(box // r_c)
-        a_xla, d_xla = near_field_tree(pos, box, MASS, EPS2, r_c, gn,
-                                       block=128)
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        a_pl, d_pl = near_field_tree(pos, box, MASS, EPS2, r_c, gn,
-                                     block=128)
-        assert int(d_xla) == int(d_pl) == 0
-        np.testing.assert_allclose(
-            np.asarray(a_pl), np.asarray(a_xla), rtol=1e-5, atol=1e-4
-        )
-        assert np.abs(np.asarray(a_pl)).max() > 1e-3
-
-    def test_sliced_pair_list_matches_single_invocation(self, monkeypatch):
-        """Pair lists past the SMEM roof run as multiple kernel
-        invocations over slices of the i-major list; a tiny forced cap
-        must reproduce the single-invocation result up to fp32
-        re-association of a straddling target's partial sums (slice
-        boundaries land mid-target-block on purpose)."""
-        from multi_adapter_particles_tpu.ops import dispatch
-
-        rng = np.random.default_rng(11)
-        n = 1024
-        pos3 = np.concatenate(
-            [
-                rng.normal(0, 60, (n // 2, 3)),
-                rng.normal(300, 60, (n // 2, 3)),
-            ]
-        ).astype(np.float32)
-        pos = aos(pos3)
-        box, r_c = 2048.0, 216.0
-        gn = int(box // r_c)
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        a_one, d_one = near_field_tree(pos, box, MASS, EPS2, r_c, gn,
-                                       block=128)
-        for cap in (10, 2):  # odd-ish slice counts, boundary mid-block
-            a_sl, d_sl = near_field_tree(
-                pos, box, MASS, EPS2, r_c, gn, block=128,
-                sweep_slice_cap=cap,
-            )
-            assert int(d_sl) == int(d_one) == 0
-            np.testing.assert_allclose(
-                np.asarray(a_sl), np.asarray(a_one), rtol=1e-5, atol=1e-4
-            )
-
-    def test_subblock_expansion_matches_direct(self, monkeypatch):
-        """Blocks wider than the sweep cap are split into sub-block pairs
-        (exact by linearity): forcing a tiny cap must reproduce the direct
-        sweep up to fp32 re-association, with and without slicing."""
-        from multi_adapter_particles_tpu.ops import dispatch, treeforce
-
-        rng = np.random.default_rng(13)
-        n = 1024
-        pos3 = np.concatenate(
-            [
-                rng.normal(0, 60, (n // 2, 3)),
-                rng.normal(300, 60, (n // 2, 3)),
-            ]
-        ).astype(np.float32)
-        pos = aos(pos3)
-        box, r_c = 2048.0, 216.0
-        gn = int(box // r_c)
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        a_dir, d_dir = near_field_tree(pos, box, MASS, EPS2, r_c, gn,
-                                       block=128)
-        monkeypatch.setattr(treeforce, "_SWEEP_MAX_BLOCK", 32)
-        a_sub, d_sub = near_field_tree(pos, box, MASS, EPS2, r_c, gn,
-                                       block=128)
-        assert int(d_dir) == int(d_sub) == 0
-        np.testing.assert_allclose(
-            np.asarray(a_sub), np.asarray(a_dir), rtol=2e-4, atol=1e-3
-        )
-        # expansion composed with SMEM slicing (boundaries mid-sub-list)
-        a_sl, d_sl = near_field_tree(
-            pos, box, MASS, EPS2, r_c, gn, block=128, sweep_slice_cap=10,
-        )
-        assert int(d_sl) == 0
-        np.testing.assert_allclose(
-            np.asarray(a_sl), np.asarray(a_dir), rtol=2e-4, atol=1e-3
-        )
-
-    def test_sub_pair_budget_truncates_and_counts(self, monkeypatch):
-        """A generous sub-pair budget sheds only pruned sentinel entries
-        (identical forces, dropped stays 0); a starved one must count the
-        live shortfall in dropped_pairs rather than lose it silently."""
-        from multi_adapter_particles_tpu.ops import dispatch, treeforce
-
-        rng = np.random.default_rng(17)
-        n = 1024
-        pos3 = np.concatenate(
-            [
-                rng.normal(0, 60, (n // 2, 3)),
-                rng.normal(300, 60, (n // 2, 3)),
-            ]
-        ).astype(np.float32)
-        pos = aos(pos3)
-        box, r_c = 2048.0, 216.0
-        gn = int(box // r_c)
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        monkeypatch.setattr(treeforce, "_SWEEP_MAX_BLOCK", 32)
-        a_full, d_full = near_field_tree(pos, box, MASS, EPS2, r_c, gn,
-                                         block=128)
-        # host probe == device survivor count (same rule): generous cap
-        sub = treeforce.host_block_pairs(pos, box, r_c, gn, block=32)[0]
-        a_cap, d_cap = near_field_tree(
-            pos, box, MASS, EPS2, r_c, gn, block=128,
-            sub_pair_budget=sub + 2,
-        )
-        assert int(d_full) == int(d_cap) == 0
-        np.testing.assert_array_equal(np.asarray(a_cap), np.asarray(a_full))
-        # starved cap: shortfall counted
-        a_st, d_st = near_field_tree(
-            pos, box, MASS, EPS2, r_c, gn, block=128,
-            sub_pair_budget=max(2, sub // 2),
-        )
-        assert int(d_st) > 0
-        assert np.isfinite(np.asarray(a_st)).all()
-
-    def test_sub_budget_shortfall_is_global_under_ownership(self, monkeypatch):
-        """dropped_pairs must be identical on every device (the mesh
-        contract in the near_field_tree docstring): with a starved
-        sub-pair budget the shortfall is recounted from the
-        un-owner-masked survivor list, so complementary owner halves
-        report the same global number (round-4 review catch: the
-        owner-masked count diverged per device)."""
-        from multi_adapter_particles_tpu.ops import dispatch, treeforce
-
-        rng = np.random.default_rng(17)
-        n = 1024
-        pos3 = np.concatenate(
-            [
-                rng.normal(0, 60, (n // 2, 3)),
-                rng.normal(300, 60, (n // 2, 3)),
-            ]
-        ).astype(np.float32)
-        pos = aos(pos3)
-        box, r_c = 2048.0, 216.0
-        gn = int(box // r_c)
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        monkeypatch.setattr(treeforce, "_SWEEP_MAX_BLOCK", 32)
-        sub = treeforce.host_block_pairs(pos, box, r_c, gn, block=32)[0]
-        starve = max(2, sub // 2)
-        _, d_all = near_field_tree(
-            pos, box, MASS, EPS2, r_c, gn, block=128,
-            sub_pair_budget=starve,
-        )
-        dropped = []
-        for parity in (0, 1):
-            _, d_p = near_field_tree(
-                pos, box, MASS, EPS2, r_c, gn, block=128,
-                sub_pair_budget=starve,
-                block_owner_fn=lambda ids, p=parity: (ids % 2) == p,
-            )
-            dropped.append(int(d_p))
-        assert dropped[0] == dropped[1] == int(d_all) > 0
-
-    def test_host_sub_pair_budget_gates_on_block_width(self):
-        from multi_adapter_particles_tpu.ops.treeforce import (
-            host_sub_pair_budget,
-        )
-
-        rng = np.random.default_rng(19)
-        pos = np.zeros((4, 4096), np.float32)
-        pos[:3] = rng.normal(0, 80, (3, 4096)).astype(np.float32)
-        # small N: adaptive block is already sweep-width -> None
-        assert host_sub_pair_budget(pos, 2048.0, 216.0, 9) is None
-
-    def test_host_sub_pair_budget_counts_at_sweep_granularity(
-        self, monkeypatch
-    ):
-        from multi_adapter_particles_tpu.ops import treeforce
-
-        rng = np.random.default_rng(23)
-        pos = np.zeros((4, 8192), np.float32)
-        pos[:3] = rng.normal(0, 120, (3, 8192)).astype(np.float32)
-        # force the wide-block gate without a multi-million-N scene
-        monkeypatch.setattr(treeforce, "default_block", lambda n: 1024)
-        monkeypatch.setattr(treeforce, "_SWEEP_MAX_BLOCK", 256)
-        sub = treeforce.host_sub_pair_budget(pos, 2048.0, 216.0, 9)
-        count, _ = treeforce.host_block_pairs(
-            pos, 2048.0, 216.0, 9, block=256
-        )
-        assert sub == int(count * 1.25) + 2
-
-    @pytest.mark.parametrize("seed", [3, 7, 41])
-    def test_host_probe_caps_device_survivors_fuzz(self, seed, monkeypatch):
-        """Safety property across random clustered scenes: capping the
-        sweep by the host probe must never drop live pairs (the probe
-        upper-bounds the device's post-prune survivor count)."""
-        from multi_adapter_particles_tpu.ops import dispatch, treeforce
-
-        rng = np.random.default_rng(seed)
-        n = 1024
-        centers = rng.uniform(-400, 400, (3, 3))
-        parts = [
-            rng.normal(c, rng.uniform(20, 120), (n // 3 + 1, 3))
-            for c in centers
-        ]
-        pos3 = np.concatenate(parts)[:n].astype(np.float32)
-        pos = aos(pos3)
-        box, r_c = 2048.0, 216.0
-        gn = int(box // r_c)
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        monkeypatch.setattr(treeforce, "_SWEEP_MAX_BLOCK", 32)
-        monkeypatch.setattr(treeforce, "default_block", lambda _n: 128)
-        cap = treeforce.host_sub_pair_budget(pos, box, r_c, gn)
-        assert cap is not None
-        a, dropped = near_field_tree(
-            pos, box, MASS, EPS2, r_c, gn, block=128, sub_pair_budget=cap,
-        )
-        assert int(dropped) == 0
-        assert np.isfinite(np.asarray(a)).all()
-
 
 class TestPotentialChannel:
     """`with_potential`: the diagnostics gauge's short-range pair
@@ -622,24 +389,6 @@ class TestPotentialChannel:
         assert (u[:7] == 0.0).all()
         assert np.isfinite(u).all()
 
-    def test_pallas_interpret_matches_xla_potential(self, monkeypatch):
-        from multi_adapter_particles_tpu.ops import dispatch
-
-        pos3 = self._clustered(seed=21)
-        box, r_c = 2048.0, 216.0
-        gn = int(box // r_c)
-        _, u_xla, _ = near_field_tree(
-            aos(pos3), box, MASS, EPS2, r_c, gn, with_potential=True,
-            block=128,
-        )
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        _, u_pl, _ = near_field_tree(
-            aos(pos3), box, MASS, EPS2, r_c, gn, with_potential=True,
-            block=128,
-        )
-        np.testing.assert_array_equal(np.asarray(u_xla), np.asarray(u_pl))
-
-
 class TestHalfPairPotential:
     """`half_pairs` (round 5): Newton-3rd halved potential-only
     enumeration. The pair potential is symmetric and the gauge consumes
@@ -675,40 +424,19 @@ class TestHalfPairPotential:
     def test_total_matches_directed_xla_fallback(self):
         self._assert_match(self._clustered())
 
-    def test_total_matches_directed_pallas_interpret(self, monkeypatch):
-        from multi_adapter_particles_tpu.ops import dispatch
-
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        self._assert_match(self._clustered(seed=5), block=128)
-
-    def test_total_matches_on_sliced_path(self, monkeypatch):
-        """Tiny sweep_slice_cap forces the multi-invocation SMEM-sliced
-        path; halving must hold across slice boundaries."""
-        from multi_adapter_particles_tpu.ops import dispatch
-
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        self._assert_match(
-            self._clustered(seed=7), block=128, sweep_slice_cap=8
-        )
-
-    def test_total_matches_under_subblock_expansion(self, monkeypatch):
-        """Wide blocks sub-split for the sweep: a parent diagonal pair
-        expands to BOTH sub orderings; half mode must keep exactly one
-        (and weight sub-diagonals 1/2)."""
-        from multi_adapter_particles_tpu.ops import dispatch, treeforce
-
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        monkeypatch.setattr(treeforce, "_SWEEP_MAX_BLOCK", 32)
-        pos3 = self._clustered(n=1024, seed=13)
-        box, r_c = 2048.0, 216.0
-        gn = int(box // r_c)
-        cap = treeforce.host_sub_pair_budget(
-            aos(pos3), box, r_c, gn
-        )
-        self._assert_match(
-            pos3, block=128,
-            **({} if cap is None else {"sub_pair_budget": cap}),
-        )
+    @pytest.mark.parametrize("block", [64, 128])
+    def test_dropped_pairs_in_directed_units(self, block):
+        """A starved budget: the halved enumeration reports its shortfall
+        in the same full-directed units as the budget, i.e. close to the
+        directed enumeration's own count and not half of it (the halved
+        list holds (F + D)/2 pairs against a (budget + nb)/2 cap, so the
+        two differ by at most the nb diagonal block pairs)."""
+        pos3 = self._clustered(seed=5)
+        _, d_dir = self._total(pos3, False, block=block, pair_budget=16)
+        _, d_half = self._total(pos3, True, block=block, pair_budget=16)
+        nb = -(-len(pos3) // block)
+        assert d_dir > 0 and d_half > 0 and d_half % 2 == 0
+        assert abs(d_half - d_dir) <= nb + 2
 
     def test_probed_budget_never_drops_in_half_mode(self):
         """`pair_budget` keeps its full-directed-count semantics: the
@@ -743,122 +471,3 @@ class TestHalfPairPotential:
         u = np.asarray(u)
         assert (u[:7] == 0.0).all()
         assert np.isfinite(u).all()
-
-
-class TestHalfForceSweep:
-    """`half_force` (round 5): Newton-3rd halved FORCE sweep — each
-    unordered block pair's plane computed once, applied to both sides
-    through the banded persistent-VMEM accumulator
-    (`_sweep_kernel_n3`). Same pair set as the directed sweep;
-    accumulation order differs (f32 ulp-class divergence, the
-    `-halfpair` precedent). The static gate must fall back to the
-    directed sweep — with identical results — wherever the banded
-    kernel does not apply."""
-
-    def _clustered(self, n=1536, seed=13):
-        rng = np.random.default_rng(seed)
-        pos3 = np.concatenate([
-            rng.normal(0, 90, (n // 2, 3)),
-            rng.normal(250, 50, (n - n // 2, 3)),
-        ]).astype(np.float32)
-        return pos3
-
-    def _accel(self, pos3, half, monkeypatch=None, **kw):
-        box, r_c = 2048.0, 216.0
-        gn = int(box // r_c)
-        a, dropped = near_field_tree(
-            aos(pos3), box, MASS, EPS2, r_c, gn, half_force=half, **kw
-        )
-        return np.asarray(a), int(dropped)
-
-    def test_matches_directed_pallas_interpret(self, monkeypatch):
-        from multi_adapter_particles_tpu.ops import dispatch
-
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        pos3 = self._clustered()
-        a_dir, d0 = self._accel(pos3, False, block=128)
-        a_n3, d1 = self._accel(pos3, True, block=128)
-        assert d0 == 0 and d1 == 0
-        scale = np.abs(a_dir).max()
-        assert np.abs(a_n3 - a_dir).max() / scale < 1e-6
-
-    def test_banded_path_matches(self, monkeypatch):
-        """Shrinking the jacc budget forces multi-band calls; per-band
-        j-side slices must recompose the same field."""
-        from multi_adapter_particles_tpu.ops import dispatch, treeforce
-
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        pos3 = self._clustered(seed=5)
-        a_one, _ = self._accel(pos3, True, block=128)
-        monkeypatch.setattr(treeforce, "_N3_JACC_FLOATS", 4 * 128 * 2)
-        monkeypatch.setattr(treeforce, "_N3_MAX_BANDS", 1 << 20)
-        a_band, d = self._accel(pos3, True, block=128)
-        assert d == 0
-        scale = np.abs(a_one).max()
-        assert np.abs(a_band - a_one).max() / scale < 1e-6
-
-    def test_gate_falls_back_on_xla(self):
-        """No Pallas -> the halved list must NOT be built: results are
-        BITWISE the directed XLA fallback's."""
-        pos3 = self._clustered(seed=7)
-        a_dir, _ = self._accel(pos3, False, block=128)
-        a_n3, _ = self._accel(pos3, True, block=128)
-        np.testing.assert_array_equal(a_n3, a_dir)
-
-    def test_gate_falls_back_on_sliced_lists(self, monkeypatch):
-        """A sweep_slice_cap below the halved budget disables the banded
-        kernel (it needs the whole list in one SMEM load) — bitwise the
-        directed sliced sweep."""
-        from multi_adapter_particles_tpu.ops import dispatch
-
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        pos3 = self._clustered(seed=9)
-        a_dir, _ = self._accel(pos3, False, block=128, sweep_slice_cap=8)
-        a_n3, _ = self._accel(pos3, True, block=128, sweep_slice_cap=8)
-        np.testing.assert_array_equal(a_n3, a_dir)
-
-    def test_gate_falls_back_on_expansion(self, monkeypatch):
-        """Sub-block-expanded scenes (block > sweep width) keep the
-        directed sweep."""
-        from multi_adapter_particles_tpu.ops import dispatch, treeforce
-
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        monkeypatch.setattr(treeforce, "_SWEEP_MAX_BLOCK", 32)
-        pos3 = self._clustered(n=1024, seed=11)
-        a_dir, _ = self._accel(pos3, False, block=128)
-        a_n3, _ = self._accel(pos3, True, block=128)
-        np.testing.assert_array_equal(a_n3, a_dir)
-
-    def test_half_force_rejects_potential(self):
-        pos3 = self._clustered(seed=3)
-        with pytest.raises(ValueError):
-            near_field_tree(
-                aos(pos3), 2048.0, MASS, EPS2, 216.0, 9,
-                with_potential=True, half_force=True,
-            )
-
-    def test_through_p3m_matches_directed(self, monkeypatch):
-        from multi_adapter_particles_tpu.ops import dispatch
-
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        pos = aos(self._clustered(seed=21))
-        kw = dict(grid=16, box=2048.0, g_const=70000.0,
-                  softening_squared=25.0, near_mode="tree")
-        a_dir, _ = p3m.p3m_accel_with_overflow(pos, **kw)
-        a_n3, _ = p3m.p3m_accel_with_overflow(pos, half_force=True, **kw)
-        a_dir, a_n3 = np.asarray(a_dir), np.asarray(a_n3)
-        scale = np.abs(a_dir).max()
-        assert np.abs(a_n3 - a_dir).max() / scale < 1e-6
-
-    def test_gate_falls_back_past_band_cap(self, monkeypatch):
-        """More than _N3_MAX_BANDS bands would starve the DMA ring
-        (measured +23% at 1M) — the gate must take the directed sweep,
-        bitwise."""
-        from multi_adapter_particles_tpu.ops import dispatch, treeforce
-
-        monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-        pos3 = self._clustered(seed=17)
-        a_dir, _ = self._accel(pos3, False, block=128)
-        monkeypatch.setattr(treeforce, "_N3_JACC_FLOATS", 4 * 128 * 2)
-        a_n3, _ = self._accel(pos3, True, block=128)
-        np.testing.assert_array_equal(a_n3, a_dir)

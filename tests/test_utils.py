@@ -192,3 +192,55 @@ class TestCompileCache:
             assert jax.config.jax_compilation_cache_dir is None
         finally:
             jax.config.update("jax_compilation_cache_dir", before)
+
+    def test_env_var_directory_is_used(self, tmp_path, monkeypatch):
+        """With JAX_COMPILATION_CACHE_DIR set, "auto" uses exactly that
+        directory and sets no other."""
+        import jax
+
+        from multi_adapter_particles_tpu.utils import compilecache
+
+        want = str(tmp_path / "from-env")
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", want)
+        before = jax.config.jax_compilation_cache_dir
+        try:
+            assert compilecache.default_dir() == want
+            assert compilecache.enable("auto") == want
+            assert jax.config.jax_compilation_cache_dir == want
+            assert os.path.isdir(want)
+        finally:
+            compilecache.enable("off")
+            jax.config.update("jax_compilation_cache_dir", before)
+
+    def test_default_is_a_fixed_path_in_the_checkout(self, monkeypatch):
+        """Without the variable the cache lives at <checkout>/.jax_cache —
+        the same path on every call and in every process (the path is
+        part of the cache key), never a temporary or pid-derived one."""
+        from multi_adapter_particles_tpu.utils import compilecache
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        d = compilecache.default_dir()
+        assert d == os.path.join(root, ".jax_cache")
+        assert d == compilecache.default_dir()
+        assert str(os.getpid()) not in d
+
+    def test_cli_auto_uses_the_env_directory(self, tmp_path, monkeypatch):
+        """`-compilecache` defaults to auto: an app launch with the
+        variable set points JAX's cache at it."""
+        import jax
+
+        from multi_adapter_particles_tpu.app import main
+        from multi_adapter_particles_tpu.utils import compilecache
+
+        want = str(tmp_path / "cli-cache")
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", want)
+        before = jax.config.jax_compilation_cache_dir
+        try:
+            assert main(["-numparticles", "256", "-steps", "1", "-nogui",
+                         "-novsync", "-nodraw"]) == 0
+            assert compilecache.enabled_dir() == want
+            assert jax.config.jax_compilation_cache_dir == want
+        finally:
+            compilecache.enable("off")
+            jax.config.update("jax_compilation_cache_dir", before)
